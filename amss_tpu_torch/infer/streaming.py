@@ -1,0 +1,137 @@
+"""Bucketed batch separation with real-time-factor accounting
+(``amss_tpu/infer/streaming.py``).
+
+Utterances are grouped into length buckets and padded to the bucket with a
+prefix frame mask; each group runs ``model.separate`` once.  Every distinct
+(bucket, batch) shape is run once on zeros before the timed phase, so first-use
+costs (the kernels' build, cuDNN's set-up) are booked as warm-up, not serving
+time.  The timed phase ends on ``torch.cuda.synchronize()``.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from amss_tpu_torch.utils.device import resolve_device, synchronize
+
+
+@dataclass
+class BucketSpec:
+    """Static bucket lengths (samples): 1-16 s at 8 kHz, ~1.6x apart."""
+
+    lengths: tuple[int, ...] = (8192, 16384, 24576, 32768, 49152, 65536, 131072)
+
+    def bucket_for(self, n: int) -> int:
+        for length in self.lengths:
+            if n <= length:
+                return length
+        return self.lengths[-1]
+
+
+@dataclass
+class RTFMeter:
+    audio_seconds: float = 0.0
+    compute_seconds: float = 0.0
+    warmup_seconds: float = 0.0  # first run of each shape, kept out of rtf
+    utterances: int = 0
+    calls: int = 0  # batch calls booked into compute_seconds
+
+    @property
+    def rtf(self) -> float:
+        return self.compute_seconds / max(self.audio_seconds, 1e-9)
+
+    @property
+    def utterances_per_sec(self) -> float:
+        return self.utterances / max(self.compute_seconds, 1e-9)
+
+
+class StreamingSeparator:
+    """Wraps a model for bucketed batch separation on one device.
+
+    ``model.separate`` must accept (mix [B, T], frame_mask=[B, T']).  The
+    device is ``cuda`` unless the caller names another; with none named and no
+    card present, construction raises."""
+
+    def __init__(self, model, sample_rate: int = 8000, buckets: BucketSpec | None = None,
+                 separate_kwargs: dict | None = None, device=None):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.sample_rate = sample_rate
+        self.buckets = buckets or BucketSpec()
+        self.kw = separate_kwargs or {}
+        self._warm: set[tuple[int, int]] = set()
+        self.meter = RTFMeter()
+
+    def _frame_count(self, t: int) -> int:
+        # an utterance shorter than one window has no frame (the JAX package's
+        # negative count would mark the wrong frames valid)
+        return max(self.model.cfg.front.frames_for(t), 0)
+
+    def _run(self, mix: np.ndarray, fmask: np.ndarray) -> torch.Tensor:
+        return self.model.separate(
+            torch.from_numpy(mix).to(self.device),
+            frame_mask=torch.from_numpy(fmask).to(self.device),
+            **self.kw,
+        )
+
+    def _warm_up(self, bucket: int, batch: int) -> None:
+        if (bucket, batch) in self._warm:
+            return
+        t0 = time.perf_counter()
+        self._run(np.zeros((batch, bucket), np.float32),
+                  np.ones((batch, self._frame_count(bucket)), np.float32))
+        synchronize(self.device)
+        self.meter.warmup_seconds += time.perf_counter() - t0
+        self._warm.add((bucket, batch))
+
+    def separate_all(self, waves: list[np.ndarray], max_batch: int = 8) -> list[np.ndarray]:
+        """Separate a corpus of variable-length utterances.
+
+        Returns per-utterance arrays [S, T_orig] in input order and books the
+        compute time against the audio time in ``self.meter``."""
+        max_bucket = self.buckets.lengths[-1]
+        if any(len(w) > max_bucket for w in waves):
+            raise NotImplementedError(
+                f"utterances longer than the largest bucket ({max_bucket} samples) "
+                "take the long-form path (infer/long.py), which is not ported yet: "
+                "slice 'long-form'"
+            )
+        order = sorted(range(len(waves)), key=lambda i: len(waves[i]))
+        groups: list[list[int]] = []
+        current = None
+        for i in order:
+            bkt = self.buckets.bucket_for(len(waves[i]))
+            if not groups or bkt != current or len(groups[-1]) >= max_batch:
+                groups.append([])
+            current = bkt
+            groups[-1].append(i)
+
+        packed = []
+        for g in groups:
+            bucket = self.buckets.bucket_for(max(len(waves[i]) for i in g))
+            mix = np.zeros((len(g), bucket), np.float32)
+            fmask = np.zeros((len(g), self._frame_count(bucket)), np.float32)
+            for j, i in enumerate(g):
+                mix[j, : len(waves[i])] = waves[i]
+                fmask[j, : self._frame_count(len(waves[i]))] = 1.0
+            packed.append((mix, fmask))
+            self._warm_up(bucket, len(g))
+
+        results: list[np.ndarray | None] = [None] * len(waves)
+        t0 = time.perf_counter()
+        outs = [self._run(mix, fmask) for mix, fmask in packed]
+        for est, g in zip(outs, groups):
+            est_np = est.cpu().numpy()
+            for j, i in enumerate(g):
+                t_i = len(waves[i])
+                results[i] = est_np[j, :, :t_i]
+                self.meter.audio_seconds += t_i / self.sample_rate
+                self.meter.utterances += 1
+        synchronize(self.device)
+        self.meter.compute_seconds += time.perf_counter() - t0
+        self.meter.calls += len(groups)
+        return results  # type: ignore[return-value]

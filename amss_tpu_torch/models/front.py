@@ -1,0 +1,102 @@
+"""The STFT front and the mask helpers of the main path (``amss_tpu/models/front.py``).
+
+``encode(wave) -> (codes, aux)``: magnitudes and the unit mixture phase.
+``features(codes)``: log-compressed separator input.
+``decode(codes, aux, length)``: masked magnitudes times the phase, back to
+waveforms.  Analysis runs kernel B1 and synthesis kernel B2, with the window
+folded into their bases; the COLA divide stays outside the kernel.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from amss_tpu_torch.ops.kernels.framed_matmul import framed_matmul, stft_basis
+from amss_tpu_torch.ops.kernels.ola import decode_ola
+from amss_tpu_torch.ops.stft import cola_norm, hann_window, idft_matrices
+from amss_tpu_torch.utils.config import FrontConfig
+
+_EPS = 1e-7
+
+
+class STFTFrontEnd(nn.Module):
+    """Fixed windowed-DFT analysis and synthesis; its bases are buffers."""
+
+    def __init__(self, cfg: FrontConfig):
+        super().__init__()
+        if cfg.kind != "stft":
+            raise ValueError(f"STFTFrontEnd needs kind 'stft', got {cfg.kind!r}")
+        self.cfg = cfg
+        win = cfg.win
+        window = hann_window(win)
+        ci, si = idft_matrices(win)
+        self.register_buffer("window", torch.as_tensor(window))
+        self.register_buffer("analysis_basis", torch.tensor(stft_basis(win)))
+        self.register_buffer(
+            "synthesis_basis",
+            torch.as_tensor(np.concatenate([ci, si], axis=0) * window[None, :]),
+        )
+
+    def encode(self, wave: torch.Tensor) -> tuple[torch.Tensor, dict]:
+        """``wave[..., T]`` -> (magnitudes ``[..., T', F]``, {"cos", "sin"})."""
+        f = self.cfg.win // 2 + 1
+        lead = wave.shape[:-1]
+        out = framed_matmul(wave.reshape(-1, wave.shape[-1]), self.analysis_basis,
+                            self.cfg.hop)
+        out = out.reshape(*lead, *out.shape[-2:])
+        re, im = out[..., :f], out[..., f:]
+        mag = torch.sqrt(re * re + im * im + _EPS * _EPS)
+        return mag, {"cos": re / mag, "sin": im / mag}
+
+    def features(self, codes: torch.Tensor) -> torch.Tensor:
+        return torch.log(codes + _EPS)
+
+    def decode(self, codes: torch.Tensor, aux: dict, length: int) -> torch.Tensor:
+        """codes ``[..., T', F]`` with the phase in ``aux`` -> ``[..., length]``."""
+        lead = codes.shape[:-2]
+        nf, f = codes.shape[-2:]
+        ri = torch.cat([codes * aux["cos"], codes * aux["sin"]], dim=-1)
+        y = decode_ola(ri.reshape(-1, nf, 2 * f), self.synthesis_basis, self.cfg.hop,
+                       length=length)
+        y = y / cola_norm(self.window, nf, self.cfg.hop, length)
+        return y.reshape(*lead, length)
+
+
+def make_front(cfg: FrontConfig) -> STFTFrontEnd:
+    if cfg.kind == "stft":
+        return STFTFrontEnd(cfg)
+    raise NotImplementedError(
+        f"front kind {cfg.kind!r} is not ported yet (slice 1 covers 'stft')"
+    )
+
+
+def vad_weights(mix_codes: torch.Tensor, threshold_db: float = 40.0) -> torch.Tensor:
+    """Binary voice activity: drop bins more than ``threshold_db`` below the
+    utterance's loudest.  [B, T', F] -> [B, T', F]."""
+    logmag = 20.0 * torch.log10(mix_codes + _EPS)
+    ref = torch.amax(logmag, dim=(-2, -1), keepdim=True)
+    return (logmag > ref - threshold_db).to(mix_codes.dtype)
+
+
+def instance_norm(
+    feats: torch.Tensor, frame_mask: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Per-utterance zero mean, unit variance over (time, freq), padding-aware."""
+    if frame_mask is None:
+        mu = feats.mean(dim=(-2, -1), keepdim=True)
+        var = feats.var(dim=(-2, -1), keepdim=True, unbiased=False)
+    else:
+        m = frame_mask[..., None]
+        denom = torch.clamp(
+            (m * torch.ones_like(feats)).sum(dim=(-2, -1), keepdim=True), min=1.0
+        )
+        mu = (feats * m).sum(dim=(-2, -1), keepdim=True) / denom
+        var = (m * (feats - mu) ** 2).sum(dim=(-2, -1), keepdim=True) / denom
+    return (feats - mu) * (1.0 / torch.sqrt(var + 1e-5))
+
+
+def _one_hot_last(idx: torch.Tensor, depth: int, dtype) -> torch.Tensor:
+    iota = torch.arange(depth, dtype=idx.dtype, device=idx.device)
+    return (idx[..., None] == iota).to(dtype)

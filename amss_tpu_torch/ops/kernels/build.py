@@ -1,0 +1,116 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+All ``csrc/*.cu`` files are compiled in one ``nvcc`` command into one shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds).  The library lands in ``build/amss_tpu_torch/<hash>/`` under the
+repository root, keyed by a hash of the sources and flags, and is built at
+first use.  Every C entry point returns ``cudaGetLastError()`` after its
+launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG.parent / "build" / "amss_tpu_torch"
+FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+]
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry point -> argument types (pointers and the stream as void*, ints as int)
+SIGNATURES = {
+    # x, basis, out, batch, t, win, hop, k, nf, stream
+    "amss_framed_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # codes, basis, out, batch, nf, k, win, hop, length, stream
+    "amss_decode_ola": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+}
+
+
+def find_nvcc() -> str:
+    """``nvcc`` from $CUDA_HOME/bin, then PATH, then /usr/local/cuda/bin."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(found)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH and /usr/local/cuda/bin); "
+        "the port's CUDA kernels are built with it at first use"
+    )
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> tuple[Path, float, str]:
+    """Compile the kernels unless this source hash is built already.
+
+    Returns (library path, seconds spent compiling, compiler output)."""
+    out_dir = BUILD_ROOT / _digest()
+    lib = out_dir / "libamss_kernels.so"
+    if lib.exists():
+        return lib, 0.0, ""
+    nvcc = find_nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"libamss_kernels.{os.getpid()}.so"
+    cmd = [nvcc, *FLAGS, "-o", str(tmp), *map(str, _sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    os.replace(tmp, lib)
+    return lib, seconds, log
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built if needed, with its signatures set."""
+    lib = ctypes.CDLL(str(build()[0]))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.amss_error_string.argtypes = [ctypes.c_int]
+    lib.amss_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def c_ints(*vals: int) -> tuple[int, ...]:
+    """The sizes a C entry point takes as ``int``: raise rather than wrap."""
+    if any(not 0 <= v < 2**31 for v in vals):
+        raise ValueError(f"kernel sizes must fit a 32-bit int, got {vals}")
+    return vals
+
+
+def check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:
+    """Raise when a C entry point reports a CUDA error (a refused launch never
+    runs, and a later synchronize would not report it)."""
+    if err != 0:
+        msg = lib.amss_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} at launch: {msg}")

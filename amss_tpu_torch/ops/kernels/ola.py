@@ -1,0 +1,93 @@
+"""B2: fused synthesis product + overlap-add (``amss_tpu/ops/pallas/ola.py``).
+
+``decode_ola(codes, basis, hop, length)`` computes
+``overlap_add(codes @ basis, hop, length)``.  A CUDA tensor goes to the
+hand-written kernel in ``csrc/decode_ola.cu``; a CPU tensor goes to the plain
+version ``decode_ola_ref``; anything else raises.  ``decode_ola.launches``
+counts the kernel's launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from amss_tpu_torch.ops.framing import overlap_add
+from amss_tpu_torch.ops.kernels.build import c_ints, check_launch, load_library
+from amss_tpu_torch.ops.kernels.framed_matmul import profitable
+
+
+def decode_ola_ref(
+    codes: torch.Tensor, basis: torch.Tensor, hop: int, length: int | None = None
+) -> torch.Tensor:
+    """Plain version: one matrix product, then overlap-add."""
+    return overlap_add(codes @ basis, hop, length=length)
+
+
+def _check(codes: torch.Tensor, basis: torch.Tensor, hop: int) -> None:
+    if codes.dim() != 3 or basis.dim() != 2 or codes.shape[-1] != basis.shape[0]:
+        raise ValueError(f"decode_ola takes codes [B, NF, K] and basis [K, win], got "
+                         f"{tuple(codes.shape)} and {tuple(basis.shape)}")
+    win = basis.shape[1]
+    if win % hop != 0 or hop % 8 != 0:
+        raise ValueError(f"decode_ola needs win%hop==0 and hop%8==0, got {win}/{hop}")
+    if codes.dtype != torch.float32 or basis.dtype != torch.float32:
+        raise TypeError(f"decode_ola takes float32, got {codes.dtype} and {basis.dtype}")
+    if codes.device != basis.device:
+        raise ValueError(f"codes on {codes.device} but basis on {basis.device}")
+    if codes.shape[1] <= 0:
+        raise ValueError("decode_ola needs at least one frame")
+
+
+def _launch(codes: torch.Tensor, basis: torch.Tensor, hop: int, length: int) -> torch.Tensor:
+    if not torch.cuda.is_available():
+        raise RuntimeError("decode_ola got a CUDA tensor but CUDA is not available")
+    codes = codes.contiguous()
+    basis = basis.contiguous()
+    b, nf, k = codes.shape
+    win = basis.shape[1]
+    sizes = c_ints(b, nf, k, win, hop, length)
+    out = torch.empty((b, length), dtype=torch.float32, device=codes.device)
+    lib = load_library()
+    with torch.cuda.device(codes.device):
+        err = lib.amss_decode_ola(
+            codes.data_ptr(), basis.data_ptr(), out.data_ptr(), *sizes,
+            torch.cuda.current_stream(codes.device).cuda_stream,
+        )
+    check_launch(lib, "decode_ola", err)
+    decode_ola.launches += 1
+    return out
+
+
+def decode_ola(
+    codes: torch.Tensor,
+    basis: torch.Tensor,
+    hop: int,
+    length: int | None = None,
+    force: bool = False,
+) -> torch.Tensor:
+    """``overlap_add(codes @ basis, hop)`` -> ``[B, length]``, frames never in
+    device memory.  ``length`` (default ``(NF-1)*hop + win``) trims or
+    zero-pads.  Shapes the JAX package sends to XLA (``profitable`` false)
+    take the plain version unless ``force`` is set."""
+    if not force and not profitable(basis.shape[1], hop):
+        return decode_ola_ref(codes, basis, hop, length)
+    _check(codes, basis, hop)
+    if length is None:
+        length = (codes.shape[1] - 1) * hop + basis.shape[1]
+    if codes.device.type == "cpu":
+        return decode_ola_ref(codes, basis, hop, length)
+    if codes.device.type == "cuda":
+        return _launch(codes, basis, hop, length)
+    raise ValueError(f"decode_ola runs on cpu or cuda tensors, got {codes.device}")
+
+
+decode_ola.launches = 0
+
+
+def overlap_add_via_kernel(
+    frames: torch.Tensor, hop: int, length: int | None = None
+) -> torch.Tensor:
+    """Overlap-add alone through ``decode_ola`` with an identity basis."""
+    win = frames.shape[-1]
+    eye = torch.eye(win, dtype=torch.float32, device=frames.device)
+    return decode_ola(frames, eye, hop, length=length)

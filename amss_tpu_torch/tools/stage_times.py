@@ -1,0 +1,84 @@
+"""Where one batch call of the c1 main path spends its device time.
+
+    python3 -m amss_tpu_torch.tools.stage_times
+
+Runs the stages of ``DPCLModel.separate`` one by one on the card, on the
+committed ``checkpoints/c1_dpcl`` weights and the main path's batch (8
+utterances of 8 s), and prints one JSON line with the median milliseconds of
+each stage over 10 calls (CUDA events around it, synchronised alone) beside
+the median of the whole ``separate`` call.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+import torch
+
+from amss_tpu_torch.models.front import vad_weights
+from amss_tpu_torch.ops.kmeans import kmeans, soft_assignments
+from amss_tpu_torch.weights import load_model_from_run
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+BATCH, SECONDS, REPS = 8, 8, 10
+
+
+def _timed(fn, reps: int):
+    """(result of the last call, median ms over reps calls after one warm-up)."""
+    out = fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return out, float(np.median(ms))
+
+
+@torch.no_grad()
+def stage_times(batch: int, seconds: int, reps: int) -> dict:
+    model = load_model_from_run(os.path.join(REPO, "checkpoints", "c1_dpcl"))
+    cfg = model.cfg
+    t = seconds * 8000
+    rng = np.random.default_rng(0)
+    mix = torch.from_numpy((rng.standard_normal((batch, t)) * 0.3).astype(np.float32)).cuda()
+    mask = torch.ones((batch, cfg.front.frames_for(t)), device="cuda")
+    k, e = cfg.nb_speakers, cfg.sep.embed_dim
+
+    times = {}
+    (codes, aux), times["stft_encode_B1"] = _timed(lambda: model.front.encode(mix), reps)
+    feats, times["log_features"] = _timed(lambda: model.front.features(codes), reps)
+    h, times["norm_blstm"] = _timed(lambda: model.trunk(feats, mask), reps)
+
+    v, times["dense_tanh_l2"] = _timed(lambda: model.head(h), reps)
+    flat_v = v.reshape(batch, -1, e)
+
+    def cluster():
+        w = vad_weights(codes, cfg.vad_threshold_db) * mask[..., None]
+        return kmeans(flat_v, k=k, iters=10, weights=w.reshape(batch, -1))[0]
+
+    cent, times["vad_kmeans"] = _timed(cluster, reps)
+    masks, times["soft_masks"] = _timed(
+        lambda: soft_assignments(flat_v, cent, tau=0.5).reshape(*codes.shape, k), reps)
+    _, times["mask_istft_B2"] = _timed(
+        lambda: model.apply_masks_and_decode(codes, aux, masks, t), reps)
+    _, whole = _timed(lambda: model.separate(mix, frame_mask=mask), reps)
+    return {"device": torch.cuda.get_device_name(0), "batch": batch, "samples": t,
+            "stage_ms": times, "sum_of_stages_ms": sum(times.values()),
+            "separate_ms": whole}
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("stage_times needs a CUDA device")
+    print(json.dumps(stage_times(BATCH, SECONDS, REPS)))
+
+
+if __name__ == "__main__":
+    main()
