@@ -3,9 +3,10 @@
 All ``csrc/*.cu`` files are compiled in one ``nvcc`` command into one shared
 library with a plain C interface (no PyTorch headers, so the build takes
 seconds).  The library lands in ``build/amss_tpu_torch/<hash>/`` under the
-repository root, keyed by a hash of the sources and flags, and is built at
-first use.  Every C entry point returns ``cudaGetLastError()`` after its
-launch.
+repository root, keyed by a hash of the sources (``*.cu`` and the ``*.cuh``
+they include) and flags, and is built at first use, with the compiler's
+report (``-Xptxas=-v``: registers and spills) kept beside it as ``nvcc.log``.
+Every C entry point returns ``cudaGetLastError()`` after its launch.
 """
 
 from __future__ import annotations
@@ -54,44 +55,43 @@ def find_nvcc() -> str:
     )
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
-
-
-def _digest() -> str:
+def _digest(src: Path) -> str:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu*")):
+    for p in sorted(src.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> tuple[Path, float, str]:
-    """Compile the kernels unless this source hash is built already.
+def build(src: Path = CSRC) -> tuple[Path, float, str]:
+    """Compile the ``*.cu`` files of ``src`` unless this source hash is built
+    already.
 
     Returns (library path, seconds spent compiling, compiler output)."""
-    out_dir = BUILD_ROOT / _digest()
+    src = Path(src)
+    out_dir = BUILD_ROOT / _digest(src)
     lib = out_dir / "libamss_kernels.so"
+    log_path = out_dir / "nvcc.log"
     if lib.exists():
-        return lib, 0.0, ""
+        return lib, 0.0, log_path.read_text() if log_path.exists() else ""
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f"libamss_kernels.{os.getpid()}.so"
-    cmd = [nvcc, *FLAGS, "-o", str(tmp), *map(str, _sources())]
+    cmd = [nvcc, *FLAGS, "-o", str(tmp), *map(str, sorted(src.glob("*.cu")))]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    log_path.write_text(log)
     os.replace(tmp, lib)
     return lib, seconds, log
 
 
-@functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """The kernels' shared library, built if needed, with its signatures set."""
-    lib = ctypes.CDLL(str(build()[0]))
+def open_library(path: Path) -> ctypes.CDLL:
+    """Load a built library and set its entry points' signatures."""
+    lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -99,6 +99,12 @@ def load_library() -> ctypes.CDLL:
     lib.amss_error_string.argtypes = [ctypes.c_int]
     lib.amss_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built if needed, with its signatures set."""
+    return open_library(build()[0])
 
 
 def c_ints(*vals: int) -> tuple[int, ...]:

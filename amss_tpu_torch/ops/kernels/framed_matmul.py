@@ -1,7 +1,9 @@
 """B1: fused framing + basis product (``amss_tpu/ops/pallas/framed_matmul.py``).
 
 ``framed_matmul(x, basis, hop)`` computes ``frames(x, win, hop) @ basis``.  A
-CUDA tensor goes to the hand-written kernel in ``csrc/framed_matmul.cu``; a
+CUDA tensor goes to the hand-written kernel in ``csrc/framed_matmul.cu``,
+which runs the product on the tensor cores in 3xTF32 (FP32 accuracy) and
+feeds ``mma.sync`` from the staged signal span, so no frame tensor exists; a
 CPU tensor goes to the plain version ``framed_matmul_ref``; anything else
 raises.  ``framed_matmul.launches`` counts the kernel's launches.
 """

@@ -2,9 +2,11 @@
 
 ``decode_ola(codes, basis, hop, length)`` computes
 ``overlap_add(codes @ basis, hop, length)``.  A CUDA tensor goes to the
-hand-written kernel in ``csrc/decode_ola.cu``; a CPU tensor goes to the plain
-version ``decode_ola_ref``; anything else raises.  ``decode_ola.launches``
-counts the kernel's launches.
+hand-written kernel in ``csrc/decode_ola.cu``, which sums each output
+hop-chunk's overlapping frames on the tensor cores in 3xTF32 (FP32 accuracy),
+with no atomics and no frame tensor; a CPU tensor goes to the plain version
+``decode_ola_ref``; anything else raises.  ``decode_ola.launches`` counts the
+kernel's launches.
 """
 
 from __future__ import annotations

@@ -6,10 +6,13 @@
 Phases, each printing its wall seconds:
 
 0. environment: torch, the card's name and power limit, nvcc;
-1. build: compile the CUDA kernels from ``amss_tpu_torch/csrc`` with nvcc;
+1. build: compile the CUDA kernels from ``amss_tpu_torch/csrc`` with nvcc, and
+   read each kernel's registers and spills (ptxas) and its tensor-core
+   instructions (``cuobjdump -sass``);
 2. kernels: each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at edge shapes, and timed beside its plain version,
-   one PyTorch library call computing the same function, and its bound;
+   main path's shapes and at edge shapes (ragged frame counts, K not a
+   multiple of 8, trimmed lengths), and timed beside its plain version, one
+   PyTorch library call computing the same function, and its two bounds;
 3. main path, speed: c1 deep clustering on ``checkpoints/c1_dpcl`` served
    through ``StreamingSeparator.separate_all`` (64 utterances of 8 s, batches
    of 8, two passes), with every kernel's launch count checked;
@@ -26,6 +29,7 @@ from __future__ import annotations
 import faulthandler
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -38,10 +42,13 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(REPO, "checkpoints", "c1_dpcl")
 TIME_LIMIT_S = 900  # the whole run; a hang ends with a traceback and exit 1
 
-# Published peaks of one H100 SXM at 700 W (NVIDIA data sheet): FP32 on the
-# CUDA cores and HBM3 bandwidth.  Both kernels compute in plain FP32.
+# Published peaks of one H100 SXM at 700 W (NVIDIA data sheet): dense TF32 on
+# the tensor cores, FP32 on the CUDA cores, and HBM3 bandwidth.  Both kernels
+# compute in 3xTF32: three TF32 products per FP32 product.
+PEAK_TF32_FLOPS = 495e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+TF32X3 = 3
 
 SECONDS = 8
 SAMPLE_RATE = 8000
@@ -55,6 +62,17 @@ QUALITY_T = 16384
 # gate sits at the lower end of the reference's 95% interval.
 QUALITY_MIN_DB = 5.25
 
+# name -> (source, the TPU kernel it replaces, its design)
+KERNELS = {
+    "framed_matmul": ("amss_tpu_torch/csrc/framed_matmul.cu",
+                      "amss_tpu/ops/pallas/framed_matmul.py:75",
+                      "mma.sync m16n8k8 3xTF32 split in registers, FP32 promotion every 2 "
+                      "k-steps, cp.async 2-stage ring, 64x88 tiles of 4 warps, 3 blocks/SM"),
+    "decode_ola": ("amss_tpu_torch/csrc/decode_ola.cu", "amss_tpu/ops/pallas/ola.py:72",
+                   "mma.sync m16n8k8 3xTF32 split in registers, FP32 promotion every 2 "
+                   "k-steps, cp.async 2-stage ring, 128x64 tiles of 8 warps, 1 block/SM"),
+}
+
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
@@ -67,23 +85,6 @@ def say(msg: str) -> None:
 def run(cmd: list[str]) -> str:
     return subprocess.run(cmd, check=True, capture_output=True, text=True,
                           timeout=120).stdout.strip()
-
-
-def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median device time of one call, from CUDA events around each call."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    events = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -102,9 +103,67 @@ def check(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float
     return err
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
-    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time for the work: the 3xTF32 tensor-core bound the kernels
+    are held to, and the FP32 CUDA-core bound beside it for reference."""
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    t_tc = TF32X3 * flops / PEAK_TF32_FLOPS
+    t_fp32 = flops / PEAK_FP32_FLOPS
+    return dict(bound_ms=max(t_tc, t_bytes) * 1e3,
+                bound_by="operations" if t_tc >= t_bytes else "bytes",
+                bound_fp32_ms=max(t_fp32, t_bytes) * 1e3,
+                bound_fp32_by="operations" if t_fp32 >= t_bytes else "bytes")
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spill bytes of each kernel, from nvcc's -Xptxas=-v output."""
+    report, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            report[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            report[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[name]["registers"] = int(m.group(1))
+    return report
+
+
+def sass_counts(lib_path, nvcc: str) -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) in each kernel's machine code."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    counts, name = {}, None
+    for line in run([cuobjdump, "-sass", str(lib_path)]).splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = {"HMMA": 0, "HGMMA": 0}
+        elif name is not None:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\.", line):
+                    counts[name][op] += 1
+                    break
+    return counts
+
+
+def kernel_facts(ptxas: dict, sass: dict, kernel: str) -> dict:
+    """What the compiler made of ``kernel`` over all its template instances:
+    the most registers and spill bytes of any, and the fewest tensor-core
+    instructions of any."""
+    names = [n for n in sass if kernel in n]
+    if not names or any(n not in ptxas for n in names):
+        raise AssertionError(f"{kernel}: not found in {sorted(sass)} and {sorted(ptxas)}")
+    return dict(instances=len(names),
+                registers=max(ptxas[n]["registers"] for n in names),
+                spill_bytes=max(ptxas[n]["spill_bytes"] for n in names),
+                HMMA=min(sass[n]["HMMA"] for n in names),
+                HGMMA=min(sass[n]["HGMMA"] for n in names))
 
 
 def phase_kernels(gen: torch.Generator) -> dict:
@@ -115,6 +174,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
         decode_ola, decode_ola_ref, overlap_add_via_kernel)
     from amss_tpu_torch.ops.framing import overlap_add
     from amss_tpu_torch.utils.config import FrontConfig
+    from amss_tpu_torch.utils.timing import time_ms
 
     dev = torch.device("cuda")
 
@@ -128,13 +188,17 @@ def phase_kernels(gen: torch.Generator) -> dict:
     hop = 64
     got = framed_matmul(x, basis, hop)
     b1_err = check("256/64 K=258 [8, 64000] (STFT)", got, framed_matmul_ref(x, basis, hop), 2e-3)
-    for win, hop_e, k, t in ((128, 32, 65, 4000), (32, 16, 64, 2048), (512, 128, 96, 6000)):
-        xe, be = randn(2, t), randn(win, k)
-        check(f"{win}/{hop_e} K={k} forced", framed_matmul(xe, be, hop_e, force=True),
+    xr = randn(1, 3001, scale=0.3)  # 44 frames: a ragged last tile
+    check("256/64 K=258 [1, 3001] (STFT, 44 frames)", framed_matmul(xr, basis, hop),
+          framed_matmul_ref(xr, basis, hop), 2e-3)
+    for win, hop_e, k, nb, t in ((256, 64, 7, 1, 3001), (128, 32, 65, 2, 4000),
+                                 (32, 16, 64, 2, 2048), (512, 128, 96, 2, 6000)):
+        xe, be = randn(nb, t), randn(win, k)
+        check(f"{win}/{hop_e} K={k} [{nb}, {t}] forced", framed_matmul(xe, be, hop_e, force=True),
               framed_matmul_ref(xe, be, hop_e), 2e-4)
     b, nf, k = BATCH, got.shape[1], basis.shape[1]
     win = basis.shape[0]
-    b1_bound, b1_by = bound(2.0 * b * nf * k * win, 4.0 * (x.numel() + basis.numel() + b * nf * k))
+    b1_bounds = bound(2.0 * b * nf * k * win, 4.0 * (x.numel() + basis.numel() + b * nf * k))
     w_conv = basis.T.contiguous()[:, None, :]
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         lib_out = F.conv1d(x[:, None, :], w_conv, stride=hop).transpose(1, 2)
@@ -142,8 +206,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
         b1_lib = time_ms(lambda: F.conv1d(x[:, None, :], w_conv, stride=hop))
     b1 = dict(ms=time_ms(lambda: framed_matmul(x, basis, hop)),
               plain_ms=time_ms(lambda: framed_matmul_ref(x, basis, hop)),
-              library_ms=b1_lib, bound_ms=b1_bound, bound_by=b1_by, max_abs_err=b1_err,
-              tol=2e-3)
+              library_ms=b1_lib, max_abs_err=b1_err, tol=2e-3, **b1_bounds)
 
     # -- B2 at the main path's shape: iSTFT of 8 utterances x 2 speakers ------
     say("B2 decode_ola vs decode_ola_ref")
@@ -156,6 +219,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
                    decode_ola_ref(codes, syn, hop, length), 2e-4)
     for nb, nf_e, k_e, win_e, hop_e, len_e, what in (
         (2, 40, 96, 256, 128, None, "hop 128"),
+        (2, 45, 258, 512, 128, 5000, "512/128 K=258 length 5000 trim"),
         (1, 30, 16, 128, 32, 900, "length 900 trim"),
         (2, 50, 32, 128, 32, 2000, "length 2000 zero-pad"),
         (2, 127, 64, 32, 16, 2048, "32/16"),
@@ -168,8 +232,8 @@ def phase_kernels(gen: torch.Generator) -> dict:
           overlap_add(frames, 64), 2e-4)
     b2n, nf2, k2 = codes.shape
     win2 = syn.shape[1]
-    b2_bound, b2_by = bound(2.0 * b2n * nf2 * k2 * win2,
-                            4.0 * (codes.numel() + syn.numel() + b2n * length))
+    b2_bounds = bound(2.0 * b2n * nf2 * k2 * win2,
+                      4.0 * (codes.numel() + syn.numel() + b2n * length))
     codes_t = codes.transpose(1, 2).contiguous()
     w_t = syn[:, None, :].contiguous()
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
@@ -178,8 +242,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
         b2_lib = time_ms(lambda: F.conv_transpose1d(codes_t, w_t, stride=hop)[:, 0, :length])
     b2 = dict(ms=time_ms(lambda: decode_ola(codes, syn, hop, length=length)),
               plain_ms=time_ms(lambda: decode_ola_ref(codes, syn, hop, length)),
-              library_ms=b2_lib, bound_ms=b2_bound, bound_by=b2_by, max_abs_err=b2_err,
-              tol=2e-4)
+              library_ms=b2_lib, max_abs_err=b2_err, tol=2e-4, **b2_bounds)
     return {"framed_matmul": b1, "decode_ola": b2}
 
 
@@ -278,9 +341,16 @@ def main() -> None:
     say(f"phase 0 environment: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
-    _, build_s, build_log = build()
+    lib_path, build_s, build_log = build()
     log(build_log)
     load_library()
+    ptxas, sass = ptxas_report(build_log), sass_counts(lib_path, find_nvcc())
+    compiled = {}
+    for name in KERNELS:
+        compiled[name] = kernel_facts(ptxas, sass, f"{name}_kernel")
+        say(f"  {name}: {compiled[name]}")
+        if compiled[name]["HMMA"] + compiled[name]["HGMMA"] == 0:
+            raise AssertionError(f"{name}: no tensor-core instruction in its machine code")
     say(f"phase 1 build: build_s {build_s:.2f} (wall {time.perf_counter() - t0:.2f} s)")
 
     t0 = time.perf_counter()
@@ -305,13 +375,8 @@ def main() -> None:
         raise AssertionError(f"SI-SDRi {quality['si_sdri_db']:.3f} dB < {QUALITY_MIN_DB} dB")
     say(f"phase 4 main path quality: {time.perf_counter() - t0:.2f} s")
 
-    meta = {
-        "framed_matmul": ("amss_tpu_torch/csrc/framed_matmul.cu",
-                          "amss_tpu/ops/pallas/framed_matmul.py:75"),
-        "decode_ola": ("amss_tpu_torch/csrc/decode_ola.cu", "amss_tpu/ops/pallas/ola.py:72"),
-    }
     record = []
-    for name, (source, replaces) in meta.items():
+    for name, (source, replaces, design) in KERNELS.items():
         k = kern[name]
         record.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -319,6 +384,8 @@ def main() -> None:
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
             "bound_us": k["bound_ms"] * 1e3, "roofline_share": k["bound_ms"] / k["ms"],
+            "bound_fp32_ms": k["bound_fp32_ms"], "bound_fp32_by": k["bound_fp32_by"],
+            "design": design, **compiled[name],
         })
     say(json.dumps({"main_path": speed, "quality": quality, "card": card,
                     "total_s": time.perf_counter() - t_start}))

@@ -1,0 +1,62 @@
+"""chip_smoke.py's bookkeeping, on the CPU: the two bounds it holds the kernels
+to, and how it reads the compiler's report and the machine code."""
+
+import pytest
+import torch
+
+import chip_smoke
+
+torch.set_num_threads(2)
+
+B1 = dict(flops=2.0 * 8 * 997 * 258 * 256, nbytes=4.0 * (8 * 64000 + 256 * 258 + 8 * 997 * 258))
+B2 = dict(flops=2.0 * 16 * 997 * 258 * 256, nbytes=4.0 * (16 * 997 * 258 + 258 * 256 + 16 * 64000))
+
+
+@pytest.mark.parametrize("work,tc_us,fp32_us", [(B1, 6.385, 15.725), (B2, 12.771, 31.451)])
+def test_bounds_at_the_main_path(work, tc_us, fp32_us):
+    b = chip_smoke.bound(**work)
+    assert b["bound_ms"] * 1e3 == pytest.approx(tc_us, abs=1e-3)
+    assert b["bound_fp32_ms"] * 1e3 == pytest.approx(fp32_us, abs=1e-3)
+    assert b["bound_by"] == b["bound_fp32_by"] == "operations"
+
+
+def test_bound_by_bytes_when_the_work_is_light():
+    b = chip_smoke.bound(flops=1e6, nbytes=1e9)
+    assert b["bound_by"] == b["bound_fp32_by"] == "bytes"
+    assert b["bound_ms"] == b["bound_fp32_ms"] == pytest.approx(1e9 / 3.35e12 * 1e3)
+
+
+PTXAS = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN2_17decode_ola_kernelILi32EEEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _ZN2_17decode_ola_kernelILi32EEEvPKf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 191 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN2_17decode_ola_kernelILi8EEEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _ZN2_17decode_ola_kernelILi8EEEvPKf
+    16 bytes stack frame, 16 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+"""
+
+SASS = """\
+\t\tFunction : _ZN2_17decode_ola_kernelILi32EEEvPKf
+        /*6040*/                   HMMA.1688.F32.TF32 R52, R44.reuse, R62, RZ ;
+        /*6050*/                   FSETP.GEU.AND P4, PT, |R74|, +INF , PT ;
+        /*6060*/                   HMMA.1688.F32.TF32 R56, R44, R8, RZ ;
+\t\tFunction : _ZN2_17decode_ola_kernelILi8EEEvPKf
+        /*0040*/                   HMMA.1688.F32.TF32 R52, R44.reuse, R62, RZ ;
+"""
+
+
+def test_ptxas_report_and_sass_counts_are_read_per_function(monkeypatch):
+    ptxas = chip_smoke.ptxas_report(PTXAS)
+    assert ptxas == {"_ZN2_17decode_ola_kernelILi32EEEvPKf": {"spill_bytes": 0, "registers": 191},
+                     "_ZN2_17decode_ola_kernelILi8EEEvPKf": {"spill_bytes": 24, "registers": 128}}
+    monkeypatch.setattr(chip_smoke, "run", lambda cmd: SASS)
+    sass = chip_smoke.sass_counts("lib.so", "/usr/local/cuda/bin/nvcc")
+    assert sass["_ZN2_17decode_ola_kernelILi32EEEvPKf"] == {"HMMA": 2, "HGMMA": 0}
+    facts = chip_smoke.kernel_facts(ptxas, sass, "decode_ola_kernel")
+    # the worst instance for registers and spills, the fewest tensor-core instructions
+    assert facts == dict(instances=2, registers=191, spill_bytes=24, HMMA=1, HGMMA=0)
+    with pytest.raises(AssertionError, match="framed_matmul_kernel"):
+        chip_smoke.kernel_facts(ptxas, sass, "framed_matmul_kernel")
