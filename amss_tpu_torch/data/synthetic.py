@@ -1,15 +1,47 @@
-"""Synthetic speakers for the quality check (``amss_tpu/data/synthetic.py``).
+"""Synthetic speakers and corpora (``amss_tpu/data/synthetic.py``).
 
-A copy of ``synth_speaker_wave_v2``: it must give the same samples, bit for
-bit, as the JAX package's, so that both packages are scored on the same
-mixtures.
+Copies of ``synth_speaker_wave`` (v1: stationary harmonic combs),
+``synth_speaker_wave_v2`` (speech-like) and ``make_synthetic_corpus``: they
+must give the same samples, bit for bit, as the JAX package's, so that both
+packages train and are scored on the same data.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from amss_tpu_torch.data.store import SpeakerStore
+
 SAMPLE_RATE = 8000
+
+
+def synth_speaker_wave(
+    speaker_seed: int,
+    n_samples: int,
+    sample_rate: int = SAMPLE_RATE,
+    n_harmonics: int = 8,
+) -> np.ndarray:
+    """One speaker's continuous 'speech': harmonic stack + AM + noise floor."""
+    rng = np.random.default_rng(speaker_seed)
+    f0 = 80.0 + 180.0 * rng.random()  # 80-260 Hz, distinct per speaker
+    envelope = rng.random(n_harmonics) + 0.2
+    envelope /= envelope.sum()
+
+    t = np.arange(n_samples) / sample_rate
+    # slow f0 wander and syllabic amplitude modulation
+    wander = 1.0 + 0.02 * np.sin(2 * np.pi * (0.3 + rng.random()) * t + rng.random())
+    am = 0.55 + 0.45 * np.sin(2 * np.pi * (2.0 + 2.0 * rng.random()) * t + rng.random())
+    phase = np.cumsum(2 * np.pi * f0 * wander / sample_rate)
+
+    x = np.zeros(n_samples)
+    for h in range(1, n_harmonics + 1):
+        if h * f0 * 1.05 >= sample_rate / 2:
+            break
+        x += envelope[h - 1] * np.sin(h * phase + rng.random() * 2 * np.pi)
+    x *= am
+    x += 0.01 * rng.standard_normal(n_samples)
+    x /= max(np.abs(x).max(), 1e-6)
+    return (0.5 * x).astype(np.float32)
 
 
 def synth_speaker_wave_v2(
@@ -71,3 +103,23 @@ def synth_speaker_wave_v2(
         pos += seg_len
     out /= max(np.abs(out).max(), 1e-6)
     return (0.5 * out).astype(np.float32)
+
+
+def make_synthetic_corpus(
+    root: str,
+    n_speakers: int = 12,
+    seconds_per_speaker: float = 30.0,
+    sample_rate: int = SAMPLE_RATE,
+    seed: int = 0,
+    version: int = 1,
+) -> SpeakerStore:
+    """Write a synthetic corpus into a ``SpeakerStore`` directory and open it.
+
+    version 1: stationary harmonic combs; version 2: speech-like."""
+    gen = synth_speaker_wave if version == 1 else synth_speaker_wave_v2
+    store = SpeakerStore.create(root, sample_rate=sample_rate)
+    n = int(seconds_per_speaker * sample_rate)
+    for s in range(n_speakers):
+        store.add_speaker(f"spk{s:03d}", gen(seed * 10_000 + s, n, sample_rate))
+    store.finalize()
+    return store

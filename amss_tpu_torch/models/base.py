@@ -1,8 +1,11 @@
 """Separator machinery shared by the heads (``amss_tpu/models/base.py``):
-the front, the normalised BLSTM trunk, and mask application.
+the front, the normalised BLSTM trunk, the training targets, and mask
+application.
 
-Slice 1 ports the BLSTM trunk with the global (instance) feature norm in
-float32; other trunks, norms and compute types raise until their slice.
+The port has the BLSTM trunk with the global (instance) feature norm in
+float32; other trunks, norms and compute types raise until their slice.  The
+JAX package's train-time corruptions (noise, reverberation, dropped sources)
+are drawn from a JAX key; here they raise until ROADMAP item 20 ports them.
 """
 
 from __future__ import annotations
@@ -11,7 +14,7 @@ import torch
 from torch import nn
 
 from amss_tpu_torch.models.blstm import BLSTM
-from amss_tpu_torch.models.front import instance_norm, make_front
+from amss_tpu_torch.models.front import bin_weights, ideal_binary_mask, instance_norm, make_front
 from amss_tpu_torch.utils.config import ModelConfig
 
 _EPS = 1e-8
@@ -40,6 +43,44 @@ class SeparatorBase(nn.Module):
     def trunk(self, feats: torch.Tensor, frame_mask: torch.Tensor | None = None) -> torch.Tensor:
         """features [B, T', F] -> [B, T', 2H]."""
         return self.blstm(instance_norm(feats, frame_mask), frame_mask)
+
+    def _check_no_corruption(self) -> None:
+        c = self.cfg
+        for field, value in (("train_noise_snr_db", c.train_noise_snr_db),
+                             ("train_reverb_rt60", c.train_reverb_rt60),
+                             ("train_min_speakers", c.train_min_speakers)):
+            if value is not None:
+                raise NotImplementedError(
+                    f"model.{field}={value!r}: the in-graph train-time corruptions "
+                    "(corrupt_mix, reverberate_sources, drop_sources) are not ported "
+                    "yet: ROADMAP item 20")
+
+    def observed_mix(self, sources: torch.Tensor, training: bool = False) -> torch.Tensor:
+        """The mixture the model observes: the sum of the sources [B, S, T].
+
+        ``training`` stands where the JAX package passes a train key: with it,
+        a config that asks for a train-time corruption raises."""
+        if training:
+            self._check_no_corruption()
+        return sources.sum(dim=1)
+
+    def encode_mix_and_sources(self, sources: torch.Tensor, training: bool = False):
+        """Mixing on the device, then analysis of the mixture and the sources.
+
+        sources [B, S, T] -> (mix [B, T], mix codes, aux, source codes
+        [B, S, T', F], ideal binary mask Y [B, T', F, S], bin weights
+        [B, T', F], source aux)."""
+        mix = self.observed_mix(sources, training)
+        codes, aux = self.front.encode(mix)
+        src_codes, src_aux = self.front.encode(sources)
+        y = ideal_binary_mask(src_codes)
+        w = bin_weights(codes, self.cfg.weight_kind, self.cfg.vad_threshold_db)
+        return mix, codes, aux, src_codes, y, w, src_aux
+
+    def loss_from_batch(self, batch: dict, training: bool = False):
+        """The trainer's entry point: ``(loss, metrics)`` from a batch holding
+        ``sources`` [B, S, T]."""
+        return self.loss(batch["sources"], training=training)
 
     def apply_masks_and_decode(
         self,

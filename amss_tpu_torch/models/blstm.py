@@ -2,14 +2,16 @@
 
 The weights live in one ``nn.LSTM(bidirectional=True)``, whose gate order
 (i, f, g, o) is the JAX package's: ``weight_ih = wxᵀ``, ``weight_hh = whᵀ``,
-``bias_ih = b`` and ``bias_hh = 0``.  Two ways to run them:
+``bias_ih = b`` and ``bias_hh = 0``, which is frozen (no gradient).  Two
+ways to run them:
 
 * ``loop``: an explicit loop with the reference's mask semantics (padded steps
   freeze (h, c) and output 0; the backward direction runs on the flipped
   input).  It takes any mask and runs on the CPU and in the tests.
 * ``packed``: cuDNN's LSTM over packed prefix-length sequences.  For a prefix
   mask, which is all the serving path builds, it computes the same thing; it
-  runs on CUDA, in FP32 (TF32 off).
+  runs on CUDA, in FP32 (TF32 off), and trains (cuDNN's backward needs the
+  module in training mode).
 """
 
 from __future__ import annotations
@@ -26,6 +28,11 @@ class BLSTM(nn.Module):
         self.layers = layers
         self.lstm = nn.LSTM(n_in, hidden, num_layers=layers, batch_first=True,
                             bidirectional=True)
+        # the JAX cell has one bias, carried in bias_ih; a trained bias_hh
+        # would take the same gradient again and double the bias's step
+        for name, p in self.lstm.named_parameters():
+            if name.startswith("bias_hh"):
+                p.requires_grad_(False)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         """x ``[B, T, In]``, mask ``[B, T]`` (1 = valid) -> ``[B, T, 2H]``."""

@@ -1,8 +1,12 @@
 """Deep-clustering separator (``amss_tpu/models/dpcl.py``): BLSTM -> unit
-embedding per time-frequency bin; at inference, k-means weighted by voice
+embedding per time-frequency bin.  Training minimises the weighted affinity
+mismatch ||VVᵀ - YYᵀ||²_F in its expanded gram form (E x E and E x S grams
+only, never the (T'·F)² affinity); at inference, k-means weighted by voice
 activity, distance-softmax masks and resynthesis, all on the device."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -13,12 +17,76 @@ from amss_tpu_torch.ops.kmeans import kmeans, soft_assignments
 from amss_tpu_torch.utils.config import ModelConfig
 
 
+def dpcl_loss(v: torch.Tensor, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Weighted ||VVᵀ - YYᵀ||²_F through its gram expansion, mean over the batch.
+
+    v [B, T', F, E] unit embeddings, y [B, T', F, S] one-hot targets, w
+    [B, T', F] bin weights.  The grams are float32 products (run it with TF32
+    off on the card)."""
+    b, e, s = v.shape[0], v.shape[-1], y.shape[-1]
+    sw = torch.sqrt(torch.clamp(w, min=0.0))[..., None]
+    vw = (v * sw).reshape(b, -1, e)  # [B, N, E]
+    yw = (y * sw).reshape(b, -1, s)  # [B, N, S]
+    vtv = vw.transpose(1, 2) @ vw
+    vty = vw.transpose(1, 2) @ yw
+    yty = yw.transpose(1, 2) @ yw
+    per = (vtv**2).sum(dim=(-2, -1)) - 2.0 * (vty**2).sum(dim=(-2, -1)) + (yty**2).sum(
+        dim=(-2, -1))
+    norm = torch.clamp(w.reshape(b, -1).sum(dim=-1), min=1.0) ** 2
+    return (per / norm).mean()
+
+
 class DPCLModel(SeparatorBase):
     def __init__(self, cfg: ModelConfig):
         if cfg.kind != "dpcl":
             raise ValueError(f"DPCLModel needs kind 'dpcl', got {cfg.kind!r}")
         super().__init__(cfg)
         self.proj = nn.Linear(self.trunk_dim, cfg.front.feature_dim * cfg.sep.embed_dim)
+
+    @torch.no_grad()
+    def init_parameters(self, generator: torch.Generator) -> None:
+        """Draw the parameters from the JAX package's distributions
+        (``init_blstm_stack`` and ``_init_dense``): the LSTM's wx and wh
+        uniform in ±1/√hidden, its bias 0 with the forget gate at 1.0; the
+        dense head uniform in ±1/√n_in, its bias 0.  ``generator`` is a CPU
+        generator, so a seed gives the same weights on any device; it cannot
+        replay ``jax.random``."""
+        hidden = self.cfg.sep.hidden
+
+        def uniform(shape, scale):
+            return torch.empty(shape).uniform_(-scale, scale, generator=generator)
+
+        for name, p in self.blstm.lstm.named_parameters():
+            if name.startswith("weight_"):
+                p.copy_(uniform(p.shape, 1.0 / math.sqrt(hidden)))
+            elif name.startswith("bias_ih"):
+                p.zero_()
+                p[hidden : 2 * hidden] = 1.0
+            else:  # bias_hh: the JAX cell has one bias; this one stays 0
+                p.zero_()
+        n_in = self.proj.in_features
+        self.proj.weight.copy_(uniform((n_in, self.proj.out_features), 1.0 / math.sqrt(n_in)).T)
+        self.proj.bias.zero_()
+
+    def loss(self, sources: torch.Tensor, training: bool = False) -> tuple[torch.Tensor, dict]:
+        """Training objective from the source chunks [B, S, T], mixed on the
+        device: the DPCL loss, plus ``recon_weight`` times the mixture's
+        reconstruction error when that is set."""
+        if training and self.cfg.sep.dropout > 0.0:
+            raise NotImplementedError(
+                f"sep.dropout={self.cfg.sep.dropout}: training-time dropout is not "
+                "ported yet; it comes with the first recipe that uses it")
+        mix, codes, aux, _, y, w, _ = self.encode_mix_and_sources(sources, training)
+        v = self.embed(self.front.features(codes))
+        l_dc = dpcl_loss(v, y, w)
+        metrics = {"dpcl_loss": l_dc}
+        loss = l_dc
+        if self.cfg.recon_weight > 0.0:
+            recon = self.front.decode(codes, aux, mix.shape[-1])
+            l_rec = ((recon - mix) ** 2).mean()
+            metrics["recon_l2"] = l_rec
+            loss = loss + self.cfg.recon_weight * l_rec
+        return loss, metrics
 
     def embed(
         self, feats: torch.Tensor, frame_mask: torch.Tensor | None = None

@@ -80,6 +80,30 @@ def vad_weights(mix_codes: torch.Tensor, threshold_db: float = 40.0) -> torch.Te
     return (logmag > ref - threshold_db).to(mix_codes.dtype)
 
 
+def ideal_binary_mask(src_codes: torch.Tensor) -> torch.Tensor:
+    """Dominant-source one-hot mask: [B, S, T', F] -> [B, T', F, S], ties to
+    the first maximum (``torch.argmax``, as ``jnp.argmax``)."""
+    dom = torch.argmax(src_codes, dim=1)
+    return _one_hot_last(dom, src_codes.shape[1], src_codes.dtype)
+
+
+def magnitude_weights(mix_codes: torch.Tensor) -> torch.Tensor:
+    """Magnitude-ratio bin weights, normalised to mean 1 per utterance."""
+    mean = mix_codes.mean(dim=(-2, -1), keepdim=True)
+    return mix_codes / torch.clamp(mean, min=_EPS)
+
+
+def bin_weights(mix_codes: torch.Tensor, kind: str, threshold_db: float) -> torch.Tensor:
+    """The loss's bin weights: "vad", "magnitude" or both ("magvad")."""
+    if kind == "vad":
+        return vad_weights(mix_codes, threshold_db)
+    if kind == "magnitude":
+        return magnitude_weights(mix_codes)
+    if kind == "magvad":
+        return magnitude_weights(mix_codes) * vad_weights(mix_codes, threshold_db)
+    raise ValueError(f"unknown weight_kind {kind!r}")
+
+
 def instance_norm(
     feats: torch.Tensor, frame_mask: torch.Tensor | None = None
 ) -> torch.Tensor:

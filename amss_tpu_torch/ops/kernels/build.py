@@ -20,6 +20,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "amss_tpu_torch"
@@ -112,6 +114,15 @@ def c_ints(*vals: int) -> tuple[int, ...]:
     if any(not 0 <= v < 2**31 for v in vals):
         raise ValueError(f"kernel sizes must fit a 32-bit int, got {vals}")
     return vals
+
+
+def check_device(device: torch.device, name: str) -> None:
+    """A kernel wrapper runs its plain version on the CPU and its kernel on
+    CUDA; it raises for any other device, and for CUDA without a card."""
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{name} got a CUDA tensor but CUDA is not available")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda tensors, got {device}")
 
 
 def check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:

@@ -5,7 +5,14 @@ CUDA tensor goes to the hand-written kernel in ``csrc/framed_matmul.cu``,
 which runs the product on the tensor cores in 3xTF32 (FP32 accuracy) and
 feeds ``mma.sync`` from the staged signal span, so no frame tensor exists; a
 CPU tensor goes to the plain version ``framed_matmul_ref``; anything else
-raises.  ``framed_matmul.launches`` counts the kernel's launches.
+raises.  ``framed_matmul.launches`` counts the kernel's launches, those of
+``decode_ola``'s backward included.
+
+It is differentiable as the JAX package's ``custom_vjp`` is: the adjoint of
+framing + product is product + overlap-add, so ``dx`` is B2 (``decode_ola``)
+on the output gradient and ``dbasis`` is one plain product of the frames with
+it.  The backward calls the public wrappers, so the tensor's device picks the
+kernel or the plain version there too.
 """
 
 from __future__ import annotations
@@ -14,9 +21,10 @@ import functools
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from amss_tpu_torch.ops.framing import frame_signal, num_frames
-from amss_tpu_torch.ops.kernels.build import c_ints, check_launch, load_library
+from amss_tpu_torch.ops.kernels.build import c_ints, check_device, check_launch, load_library
 from amss_tpu_torch.ops.stft import dft_matrices, hann_window
 
 
@@ -45,12 +53,11 @@ def _check(x: torch.Tensor, basis: torch.Tensor, hop: int) -> int:
     nf = num_frames(x.shape[-1], win, hop)
     if nf <= 0:
         raise ValueError(f"signal length {x.shape[-1]} shorter than window {win}")
+    check_device(x.device, "framed_matmul")
     return nf
 
 
 def _launch(x: torch.Tensor, basis: torch.Tensor, hop: int, nf: int) -> torch.Tensor:
-    if not torch.cuda.is_available():
-        raise RuntimeError("framed_matmul got a CUDA tensor but CUDA is not available")
     x = x.contiguous()
     basis = basis.contiguous()
     b, t = x.shape
@@ -68,22 +75,50 @@ def _launch(x: torch.Tensor, basis: torch.Tensor, hop: int, nf: int) -> torch.Te
     return out
 
 
+class _FramedMatmul(torch.autograd.Function):
+    """B1 with its adjoint: ``dx`` through B2, ``dbasis = frames(x)ᵀ·g``."""
+
+    @staticmethod
+    def forward(ctx, x, basis, hop: int, nf: int, force: bool):
+        ctx.hop, ctx.force = hop, force
+        ctx.save_for_backward(x, basis)
+        if x.device.type == "cpu":
+            return framed_matmul_ref(x, basis, hop)
+        return _launch(x, basis, hop, nf)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        from amss_tpu_torch.ops.kernels.ola import decode_ola
+
+        x, basis = ctx.saved_tensors
+        dx = dbasis = None
+        if ctx.needs_input_grad[0]:
+            dx = decode_ola(g, basis.T, ctx.hop, length=x.shape[-1], force=ctx.force)
+        if ctx.needs_input_grad[1]:
+            frames = frame_signal(x, basis.shape[0], ctx.hop)
+            dbasis = torch.einsum("bnw,bnk->wk", frames, g)
+        return dx, dbasis, None, None, None
+
+
 def framed_matmul(
     x: torch.Tensor, basis: torch.Tensor, hop: int, force: bool = False
 ) -> torch.Tensor:
-    """``frames(x, win, hop) @ basis`` -> ``[B, NF, K]``.
+    """``frames(x, win, hop) @ basis`` -> ``[B, NF, K]``, differentiable in
+    both inputs.
 
     x ``[B, T]`` and basis ``[win, K]``, float32, on one device.  Shapes the
     JAX package sends to XLA (``profitable`` false) take the plain version
-    unless ``force`` is set."""
+    unless ``force`` is set; a forced call's backward is forced too.
+
+    The backward's ``dx`` on CUDA is B2, which fills few of the card's SMs at
+    small batches: at the c1 training shape ``[8, 16384]`` it is slower than
+    the plain version's autograd (ROADMAP B.e).  c1 training never reaches it:
+    its basis and waveforms need no gradient."""
     if not force and not profitable(basis.shape[0], hop):
         return framed_matmul_ref(x, basis, hop)
     nf = _check(x, basis, hop)
-    if x.device.type == "cpu":
-        return framed_matmul_ref(x, basis, hop)
-    if x.device.type == "cuda":
-        return _launch(x, basis, hop, nf)
-    raise ValueError(f"framed_matmul runs on cpu or cuda tensors, got {x.device}")
+    return _FramedMatmul.apply(x, basis, hop, nf, force)
 
 
 framed_matmul.launches = 0

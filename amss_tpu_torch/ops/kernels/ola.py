@@ -6,16 +6,25 @@ hand-written kernel in ``csrc/decode_ola.cu``, which sums each output
 hop-chunk's overlapping frames on the tensor cores in 3xTF32 (FP32 accuracy),
 with no atomics and no frame tensor; a CPU tensor goes to the plain version
 ``decode_ola_ref``; anything else raises.  ``decode_ola.launches`` counts the
-kernel's launches.
+kernel's launches, those of ``framed_matmul``'s backward included.
+
+It is differentiable as the JAX package's ``custom_vjp`` is: the adjoint of
+product + overlap-add is framing + product, so ``dcodes`` is B1
+(``framed_matmul``) on the output gradient, first padded or cut back to the
+full overlap-add length, and ``dbasis`` is one plain product of the codes with
+its frames.  The backward calls the public wrappers, so the tensor's device
+picks the kernel or the plain version there too.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
-from amss_tpu_torch.ops.framing import overlap_add
-from amss_tpu_torch.ops.kernels.build import c_ints, check_launch, load_library
-from amss_tpu_torch.ops.kernels.framed_matmul import profitable
+from amss_tpu_torch.ops.framing import frame_signal, overlap_add
+from amss_tpu_torch.ops.kernels.build import c_ints, check_device, check_launch, load_library
+from amss_tpu_torch.ops.kernels.framed_matmul import framed_matmul, profitable
 
 
 def decode_ola_ref(
@@ -38,11 +47,10 @@ def _check(codes: torch.Tensor, basis: torch.Tensor, hop: int) -> None:
         raise ValueError(f"codes on {codes.device} but basis on {basis.device}")
     if codes.shape[1] <= 0:
         raise ValueError("decode_ola needs at least one frame")
+    check_device(codes.device, "decode_ola")
 
 
 def _launch(codes: torch.Tensor, basis: torch.Tensor, hop: int, length: int) -> torch.Tensor:
-    if not torch.cuda.is_available():
-        raise RuntimeError("decode_ola got a CUDA tensor but CUDA is not available")
     codes = codes.contiguous()
     basis = basis.contiguous()
     b, nf, k = codes.shape
@@ -60,6 +68,33 @@ def _launch(codes: torch.Tensor, basis: torch.Tensor, hop: int, length: int) -> 
     return out
 
 
+class _DecodeOla(torch.autograd.Function):
+    """B2 with its adjoint: ``dcodes`` through B1, ``dbasis = codesᵀ·frames(g)``."""
+
+    @staticmethod
+    def forward(ctx, codes, basis, hop: int, length: int, force: bool):
+        ctx.hop, ctx.force = hop, force
+        ctx.save_for_backward(codes, basis)
+        if codes.device.type == "cpu":
+            return decode_ola_ref(codes, basis, hop, length)
+        return _launch(codes, basis, hop, length)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        codes, basis = ctx.saved_tensors
+        win = basis.shape[1]
+        t_full = (codes.shape[1] - 1) * ctx.hop + win
+        # undo the trim or zero-pad, so g covers the whole overlap-add extent
+        g = F.pad(g, (0, t_full - g.shape[-1])) if g.shape[-1] < t_full else g[:, :t_full]
+        dcodes = dbasis = None
+        if ctx.needs_input_grad[0]:
+            dcodes = framed_matmul(g, basis.T, ctx.hop, force=ctx.force)
+        if ctx.needs_input_grad[1]:
+            dbasis = torch.einsum("bnk,bnw->kw", codes, frame_signal(g, win, ctx.hop))
+        return dcodes, dbasis, None, None, None
+
+
 def decode_ola(
     codes: torch.Tensor,
     basis: torch.Tensor,
@@ -68,19 +103,16 @@ def decode_ola(
     force: bool = False,
 ) -> torch.Tensor:
     """``overlap_add(codes @ basis, hop)`` -> ``[B, length]``, frames never in
-    device memory.  ``length`` (default ``(NF-1)*hop + win``) trims or
-    zero-pads.  Shapes the JAX package sends to XLA (``profitable`` false)
-    take the plain version unless ``force`` is set."""
+    device memory, differentiable in both inputs.  ``length`` (default
+    ``(NF-1)*hop + win``) trims or zero-pads.  Shapes the JAX package sends to
+    XLA (``profitable`` false) take the plain version unless ``force`` is set;
+    a forced call's backward is forced too."""
     if not force and not profitable(basis.shape[1], hop):
         return decode_ola_ref(codes, basis, hop, length)
     _check(codes, basis, hop)
     if length is None:
         length = (codes.shape[1] - 1) * hop + basis.shape[1]
-    if codes.device.type == "cpu":
-        return decode_ola_ref(codes, basis, hop, length)
-    if codes.device.type == "cuda":
-        return _launch(codes, basis, hop, length)
-    raise ValueError(f"decode_ola runs on cpu or cuda tensors, got {codes.device}")
+    return _DecodeOla.apply(codes, basis, hop, length, force)
 
 
 decode_ola.launches = 0

@@ -1,18 +1,26 @@
-"""Where one batch call of the c1 main path spends its device time.
+"""Where one batch call of the c1 main path, and one c1 train step, spend
+their device time.
 
-    python3 -m amss_tpu_torch.tools.stage_times
+    python3 -m amss_tpu_torch.tools.stage_times           # serving
+    python3 -m amss_tpu_torch.tools.stage_times --train   # one train step
 
-Runs the stages of ``DPCLModel.separate`` one by one on the card, on the
-committed ``checkpoints/c1_dpcl`` weights and the main path's batch (8
-utterances of 8 s), and prints one JSON line with the median milliseconds of
-each stage over 10 calls (CUDA events around it, synchronised alone) beside
-the median of the whole ``separate`` call.  Needs a CUDA device.
+Serving runs the stages of ``DPCLModel.separate`` one by one on the card, on
+the committed ``checkpoints/c1_dpcl`` weights and the main path's batch (8
+utterances of 8 s).  Training runs the stages of one step of the c1 recipe at
+full width (2x300 BLSTM, E = 20, batch 8 of 16384 samples, weights drawn from
+seed 0, a random batch): the front with its two B1 launches and the targets,
+the norm and BLSTM forward, the head, the loss, the BLSTM's backward alone,
+the whole backward, and the optimiser.  Each prints one JSON line with the
+median milliseconds of each stage over 10 calls (CUDA events around it,
+synchronised alone) beside the median of the whole call or step.  Needs a
+CUDA device.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import sys
 
 import numpy as np
 import torch
@@ -74,10 +82,58 @@ def stage_times(batch: int, seconds: int, reps: int) -> dict:
             "separate_ms": whole}
 
 
+def train_stage_times(reps: int) -> dict:
+    from amss_tpu_torch.configs.recipes import c1_stft_dpcl
+    from amss_tpu_torch.models.dpcl import dpcl_loss
+    from amss_tpu_torch.train.engine import make_model
+    from amss_tpu_torch.train.optim import Adam, make_schedule
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the default, stated
+    recipe = c1_stft_dpcl()
+    t = recipe.train
+    model = make_model(recipe.model)
+    model.init_parameters(torch.Generator().manual_seed(t.seed))
+    model = model.cuda().train()
+    params = [p for p in model.parameters() if p.requires_grad]
+    opt = Adam(params, make_schedule(t), t.grad_clip)
+    rng = np.random.default_rng(0)
+    sources = torch.from_numpy(
+        (rng.standard_normal((t.batch_size, 2, t.chunk_samples)) * 0.1).astype(np.float32)).cuda()
+
+    times = {}
+    enc, times["mix_stft_B1x2_targets"] = _timed(
+        lambda: model.encode_mix_and_sources(sources, training=True), reps)
+    _, codes, _, _, y, w, _ = enc
+    feats, times["log_features"] = _timed(lambda: model.front.features(codes), reps)
+    h, times["norm_blstm_forward"] = _timed(lambda: model.trunk(feats), reps)
+    v, times["dense_tanh_l2_forward"] = _timed(lambda: model.head(h), reps)
+    loss, times["dpcl_loss_forward"] = _timed(lambda: dpcl_loss(v, y, w), reps)
+    gh = torch.autograd.grad(loss, h, retain_graph=True)[0]
+    blstm = [p for p in model.blstm.parameters() if p.requires_grad]
+    _, times["blstm_backward"] = _timed(
+        lambda: torch.autograd.grad(h, blstm, gh, retain_graph=True), reps)
+    grads, times["whole_backward"] = _timed(
+        lambda: torch.autograd.grad(loss, params, retain_graph=True), reps)
+    _, times["clip_adam"] = _timed(lambda: opt.step(list(grads)), reps)
+
+    def step():
+        loss, _ = model.loss(sources, training=True)
+        opt.step(list(torch.autograd.grad(loss, params)))
+
+    _, whole = _timed(step, reps)
+    return {"device": torch.cuda.get_device_name(0), "batch": t.batch_size,
+            "samples": t.chunk_samples, "stage_ms": times,
+            "sum_of_stages_ms": sum(v for k, v in times.items() if k != "blstm_backward"),
+            "train_step_ms": whole}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("stage_times needs a CUDA device")
-    print(json.dumps(stage_times(BATCH, SECONDS, REPS)))
+    if "--train" in sys.argv[1:]:
+        print(json.dumps(train_stage_times(REPS)))
+    else:
+        print(json.dumps(stage_times(BATCH, SECONDS, REPS)))
 
 
 if __name__ == "__main__":

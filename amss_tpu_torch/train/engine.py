@@ -1,0 +1,394 @@
+"""The training engine (``amss_tpu/train/engine.py``): one fit loop for a
+recipe, with periodic validation, checkpoints and best-checkpoint retention.
+
+A step mixes on the device, runs the front (kernel B1 on a card), the BLSTM,
+the head and the loss, then clips by the global norm and takes an Adam step,
+all without waiting for the device on the host.  The host draws batches on a
+background thread (``data/prefetch.py``) and ships the sources as int16.
+
+A run dir is named ``<recipe>_<run id>`` with the JAX package's run id, and
+holds the same files: ``config.json``, ``corpus.json``, ``metrics.jsonl`` and
+msgpack checkpoints in the JAX package's layout (``params`` and ``ema_params``
+as its parameter tree, ``opt_state`` as optax's state tree, ``step``).  A run
+dir trained here loads through the JAX package's ``load_model_from_run``, and
+a JAX run dir restores here.
+
+A state is a dict of detached tensors: ``params`` (the model's named
+parameters), ``opt_state`` (``count`` and Adam's ``mu`` and ``nu`` by
+parameter name), ``step`` and, with EMA on, ``ema_params``.  ``fit`` copies a
+state into the live model and returns a new one.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import time
+from contextlib import contextmanager
+
+import numpy as np
+import torch
+
+from amss_tpu_torch.ckpt.checkpoint import AsyncCheckpointer, restore_checkpoint
+from amss_tpu_torch.data.mixer import Mixer
+from amss_tpu_torch.data.prefetch import Prefetcher
+from amss_tpu_torch.models.dpcl import DPCLModel
+from amss_tpu_torch.train.optim import Adam, AdamState, make_schedule
+from amss_tpu_torch.utils.config import ModelConfig, RecipeConfig, recipe_to_dict, run_id
+from amss_tpu_torch.utils.device import resolve_device
+from amss_tpu_torch.utils.logging import MetricWriter
+from amss_tpu_torch.weights import jax_tree, named_from_jax
+
+# model kind -> the slice of the port (ROADMAP A) that brings it
+_LATER = {"l41": "item 17 (L41 and Chimera)", "chimera": "item 17 (L41 and Chimera)",
+          "tasnet": "item 15 (TasNet flagship)", "adapt_ae": "item 14 (adaptive front)",
+          "enhance": "item 18 (count and enhance)"}
+
+
+def make_model(cfg: ModelConfig) -> DPCLModel:
+    if cfg.kind == "dpcl":
+        return DPCLModel(cfg)
+    if cfg.kind in _LATER:
+        raise NotImplementedError(
+            f"model kind {cfg.kind!r} is not ported yet: ROADMAP {_LATER[cfg.kind]}")
+    raise ValueError(f"unknown model kind {cfg.kind!r}")
+
+
+def _clone(named: dict) -> dict:
+    return {k: v.detach().clone() for k, v in named.items()}
+
+
+class Trainer:
+    """Trains ``recipe`` on the speakers of ``store``, in
+    ``<workdir>/<recipe name>_<run id>`` unless ``run_dir`` names the dir.
+
+    Runs on ``cuda`` unless ``device`` names another (``"cpu"`` runs the plain
+    versions of the kernels); without a card and without ``device`` it
+    raises.  ``train.steps_per_call`` is accepted and runs the same per-step
+    loop: the JAX package scans that many steps per call for the TPU, the
+    per-step math is the same, and the run id leaves the knob out, so it
+    cannot change the trajectory."""
+
+    def __init__(self, recipe: RecipeConfig, store, workdir: str = "runs",
+                 run_dir: str | None = None, device=None):
+        t = recipe.train
+        if t.device_data:
+            raise NotImplementedError(
+                "train.device_data (DeviceCorpus, a corpus resident on the card) is not "
+                "ported yet: ROADMAP A.12")
+        if t.valid_quality:
+            raise NotImplementedError(
+                "train.valid_quality (SI-SDRi at validation) is not ported yet: ROADMAP "
+                "A.22 (evaluation)")
+        if t.data_axis != 1:
+            raise NotImplementedError(
+                f"train.data_axis={t.data_axis}: multi-GPU data parallel is ROADMAP item 23")
+        if recipe.pretrained_front or recipe.base_run:
+            raise NotImplementedError(
+                "pretrained_front and base_run come with the adaptive front and enhance "
+                "slices: ROADMAP items 14 and 18")
+        if t.batch_size % max(t.accum_steps, 1) != 0:
+            raise ValueError(
+                f"batch_size {t.batch_size} not divisible by accum_steps {t.accum_steps}")
+        self.device = resolve_device(device)
+        self.recipe = recipe
+        self.rid = run_id(recipe)
+        self.dir = run_dir or os.path.join(workdir, f"{recipe.name}_{self.rid}")
+        self._check_corpus_collision(store)
+        # the gram products of the loss and every other product run in FP32 on
+        # the card (the default, stated); the BLSTM turns cuDNN's TF32 off itself
+        torch.backends.cuda.matmul.allow_tf32 = False
+        self.model = make_model(recipe.model).to(self.device)
+        self.mixer = Mixer(store, nb_speakers=recipe.model.nb_speakers,
+                           chunk_samples=t.chunk_samples, seed=t.seed)
+        named = [(n, p) for n, p in self.model.named_parameters() if p.requires_grad]
+        self.names = [n for n, _ in named]
+        self.params = [p for _, p in named]
+        self._front = [i for i, n in enumerate(self.names) if n.startswith("front.")]
+        self.opt = Adam(self.params, make_schedule(t), t.grad_clip)
+        self.ema: list[torch.Tensor] | None = None
+        self.step = 0
+        self.writer = MetricWriter(self.dir)
+        self._ckpt = AsyncCheckpointer()
+        self._warned_summaries = False
+
+    # -- states ------------------------------------------------------------
+    def init_state(self) -> dict:
+        """A fresh state: parameters drawn from a CPU generator seeded with
+        ``train.seed``, zero moments, step 0."""
+        gen = torch.Generator().manual_seed(self.recipe.train.seed)
+        model = make_model(self.recipe.model)
+        model.init_parameters(gen)
+        params = {n: p.detach().to(self.device) for n, p in model.named_parameters()}
+        return self._fresh_state(params)
+
+    def _fresh_state(self, params: dict) -> dict:
+        state = {"params": params, "step": 0,
+                 "opt_state": {"count": 0,
+                               "mu": {n: torch.zeros_like(params[n]) for n in self.names},
+                               "nu": {n: torch.zeros_like(params[n]) for n in self.names}}}
+        if self.recipe.train.ema_decay > 0.0:
+            state["ema_params"] = {n: params[n].clone() for n in self.names}
+        return state
+
+    def state(self) -> dict:
+        """A snapshot of the live state."""
+        st = self.opt.state
+        out = {"params": _clone(dict(self.model.named_parameters())), "step": self.step,
+               "opt_state": {"count": st.count,
+                             "mu": _clone(dict(zip(self.names, st.mu))),
+                             "nu": _clone(dict(zip(self.names, st.nu)))}}
+        if self.ema is not None:
+            out["ema_params"] = _clone(dict(zip(self.names, self.ema)))
+        return out
+
+    @torch.no_grad()
+    def load_state(self, state: dict) -> None:
+        """Copy ``state`` into the live model, optimiser and EMA."""
+        live = dict(self.model.named_parameters())
+        for n, v in state["params"].items():
+            live[n].copy_(v)
+        opt = state["opt_state"]
+        self.opt.state = AdamState(
+            mu=[opt["mu"][n].to(self.device, copy=True) for n in self.names],
+            nu=[opt["nu"][n].to(self.device, copy=True) for n in self.names],
+            count=int(opt["count"]))
+        self.ema = None
+        if self.recipe.train.ema_decay > 0.0:
+            # a state from before EMA was on seeds the average at the params
+            src = state.get("ema_params") or {n: live[n] for n in self.names}
+            self.ema = [src[n].to(self.device, copy=True) for n in self.names]
+        self.step = int(state["step"])
+
+    def state_tree(self, state: dict) -> dict:
+        """``state`` in the JAX package's checkpoint layout: parameter trees of
+        numpy arrays and optax's state ``(clip, (adam, schedule))``, each tuple
+        a map keyed by index as flax writes it."""
+        layers = self.recipe.model.sep.layers
+        opt = state["opt_state"]
+        adam = {"count": np.asarray(opt["count"], np.int32),
+                "mu": jax_tree(opt["mu"], layers), "nu": jax_tree(opt["nu"], layers)}
+        sched = ({"count": np.asarray(opt["count"], np.int32)}
+                 if self.recipe.train.lr_schedule == "cosine" else {})
+        tree = {"params": jax_tree(state["params"], layers),
+                "opt_state": {"0": {}, "1": {"0": adam, "1": sched}},
+                "step": int(state["step"])}
+        if "ema_params" in state:
+            tree["ema_params"] = jax_tree(state["ema_params"], layers)
+        return tree
+
+    def state_from_tree(self, tree: dict) -> dict:
+        """A state from a tree in the JAX package's layout (a checkpoint's, or
+        ``{"params": ...}`` alone for fresh moments at step 0)."""
+
+        def named(t: dict) -> dict:
+            return {n: v.to(self.device) for n, v in named_from_jax(t["separator"]).items()}
+
+        state = self._fresh_state(named(tree["params"]))
+        if "opt_state" in tree:
+            adam = tree["opt_state"]["1"]["0"]
+            mu, nu = named(adam["mu"]), named(adam["nu"])
+            state["opt_state"] = {"count": int(adam["count"]),
+                                  "mu": {n: mu[n] for n in self.names},
+                                  "nu": {n: nu[n] for n in self.names}}
+        state["step"] = int(tree.get("step", 0))
+        if "ema_params" in tree and "ema_params" in state:
+            ema = named(tree["ema_params"])
+            state["ema_params"] = {n: ema[n] for n in self.names}
+        return state
+
+    # -- data --------------------------------------------------------------
+    @staticmethod
+    def _host_arrays(batch) -> dict:
+        """A host batch in the int16 wire format."""
+        q = np.clip(batch.sources * 32767.0, -32767.0, 32767.0).astype(np.int16)
+        return {"sources_q": q}
+
+    def _device_batch(self, batch) -> dict:
+        """A host batch on the device: int16 through pinned memory, copied
+        without waiting on a card."""
+        out = {}
+        for k, v in self._host_arrays(batch).items():
+            t = torch.from_numpy(v)
+            if self.device.type == "cuda":
+                out[k] = t.pin_memory().to(self.device, non_blocking=True)
+            else:
+                out[k] = t.to(self.device)
+        return out
+
+    @staticmethod
+    def _dequantize(batch: dict) -> dict:
+        """int16 wire format -> float32 on the device, times exactly 1/32767."""
+        out = dict(batch)
+        if "sources_q" in out:
+            out["sources"] = out.pop("sources_q").to(torch.float32) * (1.0 / 32767.0)
+        return out
+
+    def _check_corpus_collision(self, store) -> None:
+        """Refuse a run dir that was trained on another corpus: the run id
+        hashes the config only, so the corpus root is kept in
+        ``corpus.json``."""
+        self._corpus_root = os.path.abspath(getattr(store, "root", ""))
+        side = os.path.join(self.dir, "corpus.json")
+        if not os.path.exists(side):
+            return
+        with open(side) as f:
+            prev = json.load(f).get("corpus_root", "")
+        if prev and self._corpus_root and prev != self._corpus_root:
+            raise ValueError(
+                f"run dir {self.dir} was trained on corpus {prev!r} but this Trainer was "
+                f"given {self._corpus_root!r}; the run id hashes the config only, so pass "
+                "a distinct workdir/run_dir per corpus (or delete the old dir)")
+
+    def _write_config(self) -> None:
+        os.makedirs(self.dir, exist_ok=True)
+        with open(os.path.join(self.dir, "config.json"), "w") as f:
+            json.dump(recipe_to_dict(self.recipe), f, indent=1)
+        if self._corpus_root:
+            with open(os.path.join(self.dir, "corpus.json"), "w") as f:
+                json.dump({"corpus_root": self._corpus_root}, f, indent=1)
+
+    # -- the step ----------------------------------------------------------
+    def _train_step(self, batch: dict, front_grad_scale: float = 1.0) -> dict:
+        """One optimiser step on a device batch; returns the metrics as
+        tensors (nothing here waits for the device).  With ``accum_steps`` >
+        1 the gradients and metrics are the means over that many
+        microbatches."""
+        t = self.recipe.train
+        accum = max(t.accum_steps, 1)
+        sources = self._dequantize(batch)["sources"]
+        self.model.train()
+        for p in self.params:
+            p.grad = None
+        msum: dict = {}
+        for mb in torch.split(sources, sources.shape[0] // accum):
+            loss, metrics = self.model.loss_from_batch({"sources": mb}, training=True)
+            loss.backward()
+            for k, v in metrics.items():
+                msum[k] = msum[k] + v.detach() if k in msum else v.detach()
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        if accum > 1:
+            grads = [g / accum for g in grads]
+            msum = {k: v / accum for k, v in msum.items()}
+        for i in self._front:
+            grads[i] = grads[i] * front_grad_scale
+        self.opt.step(grads)
+        for p in self.params:
+            p.grad = None
+        if self.ema is not None:
+            d = t.ema_decay
+            with torch.no_grad():
+                for e, p in zip(self.ema, self.params):
+                    e.copy_(d * e + (1.0 - d) * p)
+        return msum
+
+    # -- the fit loop --------------------------------------------------------
+    def fit(self, state: dict | None = None, log_every: int = 50) -> dict:
+        """Train from ``state`` (a fresh one by default) to ``train.steps``,
+        validating and checkpointing every ``valid_every`` steps and at the
+        end; returns the final state."""
+        r = self.recipe.train
+        self._write_config()
+        self.load_state(self.init_state() if state is None else state)
+        start = self.step
+        batches = Prefetcher(
+            make_batch=lambda s: self.mixer.batch("train", s, r.batch_size),
+            put_batch=self._device_batch, start_step=start, end_step=r.steps)
+        best_v, stale = float("inf"), 0
+        t0 = time.time()
+        try:
+            for step, batch in batches:
+                fscale = 0.0 if step < self.recipe.freeze_front_steps else 1.0
+                metrics = self._train_step(batch, fscale)
+                self.step = step + 1
+
+                if (step + 1) % log_every == 0:
+                    m = {k: float(v) for k, v in metrics.items()}
+                    m["steps_per_sec"] = log_every / max(time.time() - t0, 1e-9)
+                    t0 = time.time()
+                    self.writer.scalars(step + 1, {f"train/{k}": v for k, v in m.items()})
+
+                if (step + 1) % r.valid_every == 0 or step + 1 == r.steps:
+                    vloss = self._validate(step)
+                    self._ckpt.save(self.dir, self.state_tree(self.state()), step=step + 1,
+                                    metric=vloss)
+                    if r.early_stop_patience > 0:
+                        if vloss < best_v:
+                            best_v, stale = vloss, 0
+                        else:
+                            stale += 1
+                        if stale >= r.early_stop_patience:
+                            self.writer.scalars(step + 1, {"train/early_stopped": 1.0})
+                            break
+        finally:
+            batches.close()
+        self._ckpt.wait()
+        self.writer.flush()
+        return self.state()
+
+    @contextmanager
+    def _serving_weights(self):
+        """The weights validation ranks and serving uses: the EMA ones when
+        EMA is on, swapped in for the block; the model in eval mode."""
+        kept = None
+        with torch.no_grad():
+            if self.ema is not None:  # copies: cuDNN keeps the LSTM's weights in one buffer
+                kept = [p.clone() for p in self.params]
+                for e, p in zip(self.ema, self.params):
+                    p.copy_(e)
+            self.model.eval()
+            try:
+                yield
+            finally:
+                if kept is not None:
+                    for k, p in zip(kept, self.params):
+                        p.copy_(k)
+                self.model.train()
+
+    def valid_loss(self) -> float:
+        """The mean loss over ``valid_steps`` fixed batches of the valid split."""
+        r = self.recipe.train
+        losses = []
+        with self._serving_weights():
+            for i in range(r.valid_steps):
+                batch = self._dequantize(
+                    self._device_batch(self.mixer.batch("valid", i, r.batch_size)))
+                loss, _ = self.model.loss_from_batch(batch)
+                losses.append(float(loss))
+        return float(np.mean(losses))
+
+    def _validate(self, step: int) -> float:
+        vloss = self.valid_loss()
+        self.writer.scalars(step + 1, {"valid/loss": vloss})
+        self._image_summaries(step)
+        return vloss
+
+    def _image_summaries(self, step: int) -> None:
+        """Log-spectrogram images of one valid mixture and of the first
+        speaker separated from it.  Best-effort: a failure is logged once and
+        the summaries stop, training goes on."""
+        if self._warned_summaries:
+            return
+        try:
+            with self._serving_weights():
+                hb = self.mixer.batch("valid", 0, 1)
+                mix = torch.from_numpy(hb.sources.sum(axis=1)).to(self.device)
+                front = self.model.front
+                codes, _ = front.encode(mix)
+                self.writer.image(step + 1, "valid/mix_log_spectrogram",
+                                  front.features(codes)[0].T.cpu().numpy())
+                est = self.model.separate(mix)
+                ecodes, _ = front.encode(est[:, 0])
+                self.writer.image(step + 1, "valid/est0_log_spectrogram",
+                                  np.log(ecodes[0].T.cpu().numpy() + 1e-7))
+        except Exception:
+            self._warned_summaries = True
+            logging.getLogger(__name__).warning(
+                "image summaries failed; disabling for this run", exc_info=True)
+
+    def restore(self, best: bool = False) -> dict:
+        """The state of the run dir's latest (or best) checkpoint."""
+        self._ckpt.wait()
+        tree, _ = restore_checkpoint(self.dir, best=best)
+        return self.state_from_tree(tree)

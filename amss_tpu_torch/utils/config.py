@@ -1,14 +1,15 @@
 """Typed dataclass configs, a copy of ``amss_tpu/utils/config.py``.
 
 The fields and defaults are those of the JAX package, so a run dir's
-``config.json`` written by either package rebuilds the same model here.  Only
-what loading a config needs is copied: the dataclasses and
-``recipe_from_dict``.  Run ids and the recipe catalogue come with later
-slices.
+``config.json`` written by either package rebuilds the same model here, and a
+recipe gets the same run id (so the same run dir name) in both packages.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
+import json
 from dataclasses import dataclass, field
 
 
@@ -119,3 +120,48 @@ def recipe_from_dict(d: dict) -> RecipeConfig:
         train=TrainConfig(**d.pop("train")),
         **d,
     )
+
+
+def recipe_to_dict(cfg: RecipeConfig) -> dict:
+    return dataclasses.asdict(cfg)
+
+
+def run_id_from_stored(d: dict) -> str:
+    """The run id of a config dict in its stored (run-dir config.json) form.
+
+    Hashing the dict as stored keeps an existing run dir's id across later
+    growth of the config.  Fields added after a release are left out of the
+    hash while they cannot change the model or the trajectory, so fresh
+    configs keep the ids they had before those fields existed."""
+    d = json.loads(json.dumps(d))  # deep copy, JSON-normalised
+    sep = d.get("model", {}).get("sep", {})
+    if sep.get("trunk") != "dpt":
+        sep.pop("heads", None)
+    tr = d.get("train", {})
+    if tr.get("accum_steps", 1) == 1:
+        tr.pop("accum_steps", None)
+    if not tr.get("ema_decay", 0.0):
+        tr.pop("ema_decay", None)
+    if not tr.get("valid_quality", False):
+        tr.pop("valid_quality", None)
+    if not tr.get("early_stop_patience", 0):
+        tr.pop("early_stop_patience", None)
+    # an execution-shape knob: the same per-step math at any value
+    tr.pop("steps_per_call", None)
+    if sep.get("scan_unroll", 1) == 1:
+        sep.pop("scan_unroll", None)
+    mdl = d.get("model", {})
+    if not mdl.get("train_noise_snr_db"):
+        mdl.pop("train_noise_snr_db", None)
+    if not mdl.get("train_reverb_rt60"):
+        mdl.pop("train_reverb_rt60", None)
+        mdl.pop("train_reverb_drr_db", None)
+    if not mdl.get("train_min_speakers"):
+        mdl.pop("train_min_speakers", None)
+    blob = json.dumps(d, sort_keys=True).encode()
+    return hashlib.sha256(blob).hexdigest()[:12]
+
+
+def run_id(cfg: RecipeConfig) -> str:
+    """Deterministic 12-hex id of the full config: the run dir's name."""
+    return run_id_from_stored(recipe_to_dict(cfg))

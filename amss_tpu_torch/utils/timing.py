@@ -6,15 +6,18 @@ import numpy as np
 import torch
 
 
-def time_ms(fn, calls: int = 20, rounds: int = 5, warmup: int = 3) -> float:
+def time_ms(fn, calls: int = 20, rounds: int = 5, warmup: int = 3,
+            stream: torch.cuda.Stream | None = None) -> float:
     """Device time of one call of ``fn``, in ms.
 
     ``calls`` calls are captured in one CUDA graph, which is replayed
     ``rounds`` times between CUDA events; the result is the median per call.
     Replaying a graph leaves the host's launch overhead out, so a kernel
     whose Python wrapper takes longer than the kernel is still timed by the
-    device.  ``fn`` must launch on the current stream."""
-    side = torch.cuda.Stream()
+    device.  ``fn`` must launch on the current stream.  Warm-up and capture
+    run on ``stream`` when one is given (a backward's ops run on the stream of
+    their forward, so time a backward on the stream its forward ran on)."""
+    side = stream if stream is not None else torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(warmup):
@@ -23,7 +26,7 @@ def time_ms(fn, calls: int = 20, rounds: int = 5, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     # relaxed: the kernels' entry points set function attributes at launch
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+    with torch.cuda.graph(graph, stream=stream, capture_error_mode="relaxed"):
         for _ in range(calls):
             fn()
     graph.replay()

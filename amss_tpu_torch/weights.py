@@ -1,4 +1,10 @@
-"""Carrying the JAX package's parameters into the port's modules."""
+"""Carrying parameters between the JAX package's tree and the port's modules,
+in both directions.
+
+The JAX tree is ``{"front": {}, "separator": {"blstm": layers, "proj": {w,
+b}}}``, each BLSTM layer ``{"fwd": {wx, wh, b}, "bwd": {...}}``.  A
+checkpoint keys the layers "0", "1", ...; the port's names are those of
+``DPCLModel.named_parameters()``."""
 
 from __future__ import annotations
 
@@ -35,6 +41,45 @@ def lstm_state(layers) -> dict:
     return state
 
 
+def named_from_jax(sep: dict) -> dict:
+    """The port's named tensors (``blstm.lstm.*``, ``proj.*``) from a JAX
+    ``separator`` tree, ``bias_hh`` included as zeros."""
+    named = {"blstm.lstm." + k: v for k, v in lstm_state(sep["blstm"]).items()}
+    named["proj.weight"] = _t(sep["proj"]["w"]).T
+    named["proj.bias"] = _t(sep["proj"]["b"])
+    return named
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return np.ascontiguousarray(t.detach().to("cpu", torch.float32).numpy())
+
+
+def jax_tree(named: dict, layers: int) -> dict:
+    """The JAX tree, as numpy arrays, of named tensors laid out as the port's
+    parameters: the parameters themselves, or Adam's moments or gradients of
+    them.  ``b = bias_ih + bias_hh`` where both are present, else ``bias_ih``.
+    Layers are keyed "0", "1", ... as a checkpoint stores them."""
+    blstm = {}
+    for i in range(layers):
+        layer = {}
+        for direction, sfx in (("fwd", f"_l{i}"), ("bwd", f"_l{i}_reverse")):
+            pre = "blstm.lstm."
+            b = named[pre + "bias_ih" + sfx]
+            if pre + "bias_hh" + sfx in named:
+                b = b + named[pre + "bias_hh" + sfx]
+            layer[direction] = {"wx": _np(named[pre + "weight_ih" + sfx].T),
+                                "wh": _np(named[pre + "weight_hh" + sfx].T), "b": _np(b)}
+        blstm[str(i)] = layer
+    proj = {"w": _np(named["proj.weight"].T), "b": _np(named["proj.bias"])}
+    return {"front": {}, "separator": {"blstm": blstm, "proj": proj}}
+
+
+def params_to_jax(model: DPCLModel) -> dict:
+    """The inverse of ``params_from_jax``: the model's parameters as the JAX
+    package's tree of numpy arrays, in the checkpoint's layout."""
+    return jax_tree(dict(model.named_parameters()), model.cfg.sep.layers)
+
+
 def params_from_jax(cfg: ModelConfig, params: dict, device=None) -> DPCLModel:
     """A ``DPCLModel`` holding a JAX parameter tree given as numpy arrays.
 
@@ -49,9 +94,7 @@ def params_from_jax(cfg: ModelConfig, params: dict, device=None) -> DPCLModel:
     layers = sep["blstm"]
     if len(layers) != cfg.sep.layers:
         raise ValueError(f"{len(layers)} BLSTM layers in the params, config says {cfg.sep.layers}")
-    state = {"blstm.lstm." + k: v for k, v in lstm_state(layers).items()}
-    state["proj.weight"] = _t(sep["proj"]["w"]).T
-    state["proj.bias"] = _t(sep["proj"]["b"])
+    state = named_from_jax(sep)
     # the front's bases are buffers computed from the config, not parameters
     state.update({k: v for k, v in model.state_dict().items() if k.startswith("front.")})
     model.load_state_dict(state, strict=True)

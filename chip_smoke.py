@@ -13,11 +13,21 @@ Phases, each printing its wall seconds:
    main path's shapes and at edge shapes (ragged frame counts, K not a
    multiple of 8, trimmed lengths), and timed beside its plain version, one
    PyTorch library call computing the same function, and its two bounds;
+2b. gradients: each kernel's autograd (its backward runs the other kernel)
+   against torch autograd of its plain version on the card, at the training
+   shape, the serving shape and edge shapes, with the backward launches
+   counted, and the backward timed at the training shape;
 3. main path, speed: c1 deep clustering on ``checkpoints/c1_dpcl`` served
    through ``StreamingSeparator.separate_all`` (64 utterances of 8 s, batches
    of 8, two passes), with every kernel's launch count checked;
 4. main path, quality: PIT SI-SDR improvement on 64 synthetic two-speaker
-   mixtures, which must reach QUALITY_MIN_DB.
+   mixtures, which must reach QUALITY_MIN_DB;
+5. training: c1 at the recipe's full width (2x300 BLSTM, E = 20, batch 8 of
+   16384 samples) through ``Trainer.fit`` for TRAIN_STEPS steps on a
+   synthetic corpus written from seed 0.  The card's first step is held
+   against the same step on the CPU; B1's launches are counted; one step runs
+   with no host sync; the valid loss must fall; the last checkpoint must
+   reload bit for bit and serve one batch.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero,
@@ -32,6 +42,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -61,6 +72,23 @@ QUALITY_T = 16384
 # (tests/test_torch_dpcl_slice.py).  A broken kernel scores about 0 dB.  The
 # gate sits at the lower end of the reference's 95% interval.
 QUALITY_MIN_DB = 5.25
+
+# phase 5: the c1 recipe at full width, cut to TRAIN_STEPS steps on a
+# synthetic v1 corpus of TRAIN_SPEAKERS x TRAIN_SECONDS s
+TRAIN_STEPS = 200
+TRAIN_VALID_EVERY = 100
+TRAIN_LOG_EVERY = 10
+TRAIN_SPEAKERS = 24
+TRAIN_SECONDS = 20.0
+# the card's first step against the CPU's (plain versions, the BLSTM as a
+# loop): the loss relative to the CPU's, each gradient relative to its largest
+# CPU magnitude (FP32 on both sides, summed in other orders through 253 steps)
+STEP_LOSS_TOL = 1e-4
+STEP_GRAD_TOL = 1e-3
+# phase 2b: each kernel's gradients against the plain version's autograd,
+# relative to the reference's largest magnitude.  3xTF32 gives under 1e-6;
+# a single-pass TF32 kernel is off by about 1e-3 and fails.
+GRAD_TOL = 2e-5
 
 # name -> (source, the TPU kernel it replaces, its design)
 KERNELS = {
@@ -188,6 +216,9 @@ def phase_kernels(gen: torch.Generator) -> dict:
     hop = 64
     got = framed_matmul(x, basis, hop)
     b1_err = check("256/64 K=258 [8, 64000] (STFT)", got, framed_matmul_ref(x, basis, hop), 2e-3)
+    xs = randn(16, 16384, scale=0.3)  # the sources' STFT in a c1 train step
+    check("256/64 K=258 [16, 16384] (STFT, training sources)", framed_matmul(xs, basis, hop),
+          framed_matmul_ref(xs, basis, hop), 2e-3)
     xr = randn(1, 3001, scale=0.3)  # 44 frames: a ragged last tile
     check("256/64 K=258 [1, 3001] (STFT, 44 frames)", framed_matmul(xr, basis, hop),
           framed_matmul_ref(xr, basis, hop), 2e-3)
@@ -244,6 +275,134 @@ def phase_kernels(gen: torch.Generator) -> dict:
               plain_ms=time_ms(lambda: decode_ola_ref(codes, syn, hop, length)),
               library_ms=b2_lib, max_abs_err=b2_err, tol=2e-4, **b2_bounds)
     return {"framed_matmul": b1, "decode_ola": b2}
+
+
+def grad_check(what: str, fn, ref_fn, inputs: list, cot: torch.Tensor, fwd_tol: float,
+               other) -> dict:
+    """``fn`` (a kernel's autograd) against its plain version ``ref_fn`` on the
+    same inputs: the output within ``fwd_tol`` (the forward checks' absolute
+    tolerance), and the gradients against torch autograd of ``ref_fn``, each
+    within ``GRAD_TOL`` of the reference's largest magnitude.  Counts the
+    launches of ``other`` (the kernel the backward runs) made by the backward
+    alone."""
+    tol = GRAD_TOL
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    check(f"{what} forward", out.detach(), ref_fn(*inputs), fwd_tol)
+    before = other.launches
+    got = torch.autograd.grad(out, leaves, cot)
+    launched = other.launches - before
+    ref_leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    want = torch.autograd.grad(ref_fn(*ref_leaves), ref_leaves, cot)
+    worst = dict(grad_max_abs_err=0.0, grad_scale=1.0, grad_rel_err=0.0)
+    for name, g, w in zip(("d" + what.split()[0], "dbasis"), got, want):
+        scale = float(w.abs().max())
+        err = max_err(g, w)
+        say(f"  {what} {name}: max_abs_err {err:.3e} = {err / scale:.2e} of "
+            f"{scale:.3g} (tol {tol:g} of it)")
+        if not err <= tol * scale:
+            raise AssertionError(f"{what} {name}: max abs error {err} > {tol} x {scale}")
+        if err / scale >= worst["grad_rel_err"]:
+            worst = dict(grad_max_abs_err=err, grad_scale=scale, grad_rel_err=err / scale)
+    return {**worst, "launched": launched}
+
+
+def phase_gradients(gen: torch.Generator) -> dict:
+    """Each kernel's backward (the other kernel plus a plain product) against
+    the plain version's autograd, and its time at the training shape."""
+    from amss_tpu_torch.models.front import STFTFrontEnd
+    from amss_tpu_torch.ops.framing import frame_signal
+    from amss_tpu_torch.ops.kernels.framed_matmul import (
+        framed_matmul, framed_matmul_ref, stft_basis)
+    from amss_tpu_torch.ops.kernels.ola import decode_ola, decode_ola_ref
+    from amss_tpu_torch.utils.config import FrontConfig
+    from amss_tpu_torch.utils.timing import time_ms
+
+    dev = torch.device("cuda")
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    stft = torch.as_tensor(stft_basis(256), device=dev)
+    syn = STFTFrontEnd(FrontConfig()).to(dev).synthesis_basis
+    out = {}
+
+    say("B1 framed_matmul backward (dx through B2) vs autograd of framed_matmul_ref")
+    checks = []
+    t_train = 16384
+    for what, x, basis, hop, fwd_tol in (
+        ("x [8, 16384] 256/64 K=258 (STFT, training)", randn(8, t_train, scale=0.3), stft, 64,
+         2e-3),
+        ("x [1, 3001] 256/64 K=258 (STFT, 44 frames)", randn(1, 3001, scale=0.3), stft, 64,
+         2e-3),
+        ("x [1, 3001] 256/64 K=7", randn(1, 3001), randn(256, 7), 64, 2e-4),
+        ("x [2, 6000] 512/128 K=258", randn(2, 6000), randn(512, 258), 128, 2e-4),
+    ):
+        nf = 1 + (x.shape[1] - basis.shape[0]) // hop
+        cot = randn(x.shape[0], nf, basis.shape[1])
+        checks.append((grad_check(what, lambda a, b, h=hop: framed_matmul(a, b, h),
+                                  lambda a, b, h=hop: framed_matmul_ref(a, b, h),
+                                  [x, basis], cot, fwd_tol, decode_ola), GRAD_TOL))
+    out["framed_matmul"] = checks
+
+    say("B2 decode_ola backward (dcodes through B1) vs autograd of decode_ola_ref")
+    checks = []
+    for what, codes, basis, hop, length, fwd_tol in (
+        ("codes [16, 997, 258] -> 64000 (iSTFT, serving)",
+         randn(16, 997, 258, scale=3.0), syn, 64, 64000, 2e-4),
+        ("codes [2, 44, 258] -> 2900 (iSTFT, trimmed)", randn(2, 44, 258, scale=3.0), syn, 64,
+         2900, 2e-4),
+        ("codes [2, 45, 258] 512/128 -> 5000 (trimmed)", randn(2, 45, 258), randn(258, 512),
+         128, 5000, 2e-4),
+        ("codes [2, 44, 258] 256/64 -> 3300 (zero-padded)", randn(2, 44, 258), randn(258, 256),
+         64, 3300, 2e-4),
+    ):
+        cot = randn(codes.shape[0], length)
+        checks.append((grad_check(what, lambda c, b, h=hop, n=length: decode_ola(c, b, h, n),
+                                  lambda c, b, h=hop, n=length: decode_ola_ref(c, b, h, n),
+                                  [codes, basis], cot, fwd_tol, framed_matmul), GRAD_TOL))
+    out["decode_ola"] = checks
+
+    # the backward's time at the training shapes: B1 on the sources' STFT
+    # [8, 16384], B2 on the codes of the same chunk [8, 253, 258].  The
+    # forward runs on the stream the backward is then captured on.
+    x = randn(8, t_train, scale=0.3).requires_grad_(True)
+    basis = stft.clone().requires_grad_(True)
+    codes = randn(8, 253, 258).requires_grad_(True)
+    sb = syn.clone().requires_grad_(True)
+    times = {}
+    for name, fn, plain, leaves in (
+        ("framed_matmul", lambda: framed_matmul(x, basis, 64),
+         lambda: framed_matmul_ref(x, basis, 64), (x, basis)),
+        ("decode_ola", lambda: decode_ola(codes, sb, 64, t_train),
+         lambda: decode_ola_ref(codes, sb, 64, t_train), (codes, sb)),
+    ):
+        for key, forward in (("backward_ms", fn), ("backward_plain_ms", plain)):
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                y = forward()
+                cot = torch.randn(y.shape, generator=gen, device=dev)
+            times.setdefault(name, {})[key] = time_ms(
+                lambda: torch.autograd.grad(y, leaves, cot, retain_graph=True), stream=stream)
+    # the backward's two parts alone: the other kernel, and the dbasis product
+    g_codes, g_wave = randn(8, 253, 258), randn(8, t_train)
+    parts = {
+        "framed_matmul": (
+            lambda: decode_ola(g_codes, stft.T, 64, t_train),
+            lambda: torch.einsum("bnw,bnk->wk", frame_signal(x.detach(), 256, 64), g_codes)),
+        "decode_ola": (
+            lambda: framed_matmul(g_wave, syn.T, 64),
+            lambda: torch.einsum("bnk,bnw->kw", codes.detach(), frame_signal(g_wave, 256, 64))),
+    }
+    for name, (kernel, dbasis) in parts.items():
+        times[name]["backward_kernel_ms"] = time_ms(kernel)
+        times[name]["backward_dbasis_ms"] = time_ms(dbasis)
+        say(f"  {name} backward at the training shape: {times[name]['backward_ms']:.4f} ms "
+            f"(the other kernel {times[name]['backward_kernel_ms']:.4f} ms, dbasis "
+            f"{times[name]['backward_dbasis_ms']:.4f} ms; plain autograd "
+            f"{times[name]['backward_plain_ms']:.4f} ms)")
+    return {"checks": out, "times": times}
 
 
 def check_kmeans_needs_no_host_sync(gen: torch.Generator) -> None:
@@ -322,6 +481,160 @@ def phase_quality(model) -> dict:
     return dict(si_sdri_db=float(imp.mean()), ci95=[float(lo), float(hi)], n=int(imp.size))
 
 
+def first_step_matches_cpu(tr, state0: dict, batch0) -> dict:
+    """The card's first step against the same step on the CPU through the
+    port's plain path (plain kernels, the BLSTM as a loop), from the same init
+    and batch: the loss and every gradient."""
+    from amss_tpu_torch.train.engine import make_model
+
+    def loss_and_grads(model, device):
+        model.train()
+        batch = tr._dequantize({k: v.to(device) for k, v in tr._device_batch(batch0).items()})
+        loss, _ = model.loss_from_batch(batch, training=True)
+        loss.backward()
+        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.requires_grad}
+        return float(loss.detach()), grads
+
+    tr.load_state(state0)
+    loss_gpu, grads_gpu = loss_and_grads(tr.model, tr.device)
+    for p in tr.model.parameters():
+        p.grad = None
+    cpu = make_model(tr.recipe.model)
+    # the state holds every parameter; the CPU twin builds its own buffers
+    # (the fixed STFT bases) and nothing else may be left out
+    keys = cpu.load_state_dict({n: v.cpu() for n, v in state0["params"].items()}, strict=False)
+    buffers = {n for n, _ in cpu.named_buffers()}
+    if keys.unexpected_keys or set(keys.missing_keys) - buffers:
+        raise AssertionError(f"CPU twin: missing {keys.missing_keys}, "
+                             f"unexpected {keys.unexpected_keys}")
+    loss_cpu, grads_cpu = loss_and_grads(cpu, torch.device("cpu"))
+    rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    say(f"  first step: loss card {loss_gpu:.7f} cpu {loss_cpu:.7f} ({rel:.2e} of it, "
+        f"tol {STEP_LOSS_TOL:g})")
+    if not rel <= STEP_LOSS_TOL:
+        raise AssertionError(f"first step loss differs from the CPU's by {rel:.3e}")
+    worst = 0.0
+    for n, g in grads_cpu.items():
+        scale = float(g.abs().max())
+        err = max_err(grads_gpu[n], g) / scale
+        worst = max(worst, err)
+        if not err <= STEP_GRAD_TOL:
+            raise AssertionError(f"first step gradient {n}: {err:.3e} of {scale:.3g} "
+                                 f"> {STEP_GRAD_TOL}")
+    say(f"  first step: {len(grads_cpu)} gradients, worst {worst:.2e} of each tensor's "
+        f"largest CPU magnitude (tol {STEP_GRAD_TOL:g})")
+    return dict(loss_card=loss_gpu, loss_cpu=loss_cpu, loss_rel_err=rel, grad_worst_rel_err=worst)
+
+
+def check_train_step_needs_no_host_sync(tr, batch0) -> None:
+    batch = tr._device_batch(batch0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tr._train_step(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    say("  one train step (front, BLSTM, loss, backward, clip, Adam): no host sync")
+
+
+def phase_train(workdir: str) -> tuple[dict, dict]:
+    """c1 at full width through Trainer.fit; returns (results, launches)."""
+    from amss_tpu_torch.ckpt.checkpoint import restore_checkpoint
+    from amss_tpu_torch.configs.recipes import c1_stft_dpcl
+    from amss_tpu_torch.data.synthetic import make_synthetic_corpus
+    from amss_tpu_torch.infer.streaming import BucketSpec, StreamingSeparator
+    from amss_tpu_torch.ops.kernels.framed_matmul import framed_matmul
+    from amss_tpu_torch.ops.kernels.ola import decode_ola
+    from amss_tpu_torch.ops.metrics import sdr_improvement
+    from amss_tpu_torch.train.engine import Trainer
+    from amss_tpu_torch.utils.timing import time_ms
+    from amss_tpu_torch.weights import load_model_from_run
+
+    t0 = time.perf_counter()
+    store = make_synthetic_corpus(os.path.join(workdir, "corpus"), n_speakers=TRAIN_SPEAKERS,
+                                  seconds_per_speaker=TRAIN_SECONDS, seed=0, version=1)
+    recipe = c1_stft_dpcl(steps=TRAIN_STEPS, valid_every=TRAIN_VALID_EVERY)
+    t = recipe.train
+    tr = Trainer(recipe, store, workdir=os.path.join(workdir, "runs"))
+    say(f"  corpus {TRAIN_SPEAKERS} x {TRAIN_SECONDS:g} s and trainer: "
+        f"{time.perf_counter() - t0:.2f} s; run dir {os.path.basename(tr.dir)}")
+
+    state0 = tr.init_state()
+    batch0 = tr.mixer.batch("train", 0, t.batch_size)
+    step_check = first_step_matches_cpu(tr, state0, batch0)
+    check_train_step_needs_no_host_sync(tr, batch0)
+    tr.load_state(state0)
+    valid0 = tr.valid_loss()
+
+    wrappers = {"framed_matmul": framed_matmul, "decode_ola": decode_ola}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    final = tr.fit(state0, log_every=TRAIN_LOG_EVERY)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {n: w.launches for n, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    n_valid = -(-t.steps // t.valid_every)
+    # two STFTs (mixture, sources) per train step and per valid batch; the
+    # image summaries of each validation add three (mixture, separate, its
+    # first speaker) and separate's iSTFT one B2
+    want = {"framed_matmul": 2 * t.steps + 2 * t.valid_steps * n_valid + 3 * n_valid,
+            "decode_ola": n_valid}
+    if launches != want:
+        raise AssertionError(f"training launches {launches}, want {want}")
+
+    metrics = [json.loads(line) for line in open(os.path.join(tr.dir, "metrics.jsonl"))]
+    valid = [m["valid/loss"] for m in metrics if "valid/loss" in m]
+    rates = [m["train/steps_per_sec"] for m in metrics if "train/steps_per_sec" in m]
+    ms_step = 1e3 / float(np.median(rates[1:]))  # the first window holds the warm-up
+    if len(valid) != n_valid or not valid[-1] < valid0:
+        raise AssertionError(f"valid loss {valid0} at init, {valid} after training")
+
+    tree, manifest = restore_checkpoint(tr.dir)
+    want_tree = tr.state_tree(final)
+
+    def same(a, b, path=""):
+        if isinstance(b, dict):
+            if not isinstance(a, dict) or list(a) != sorted(b):
+                raise AssertionError(f"checkpoint {path}: keys {list(a)} != {sorted(b)}")
+            for k in b:
+                same(a[k], b[k], f"{path}/{k}")
+        elif not np.array_equal(np.asarray(a), np.asarray(b)) or \
+                np.asarray(a).dtype != np.asarray(b).dtype:
+            raise AssertionError(f"checkpoint {path} does not reload bit for bit")
+
+    same(tree, want_tree)
+    if manifest["step"] != t.steps:
+        raise AssertionError(f"ckpt_latest is at step {manifest['step']}")
+    say(f"  ckpt_latest.msgpack (step {manifest['step']}) reloads bit for bit")
+
+    model = load_model_from_run(tr.dir)
+    hb = tr.mixer.batch("valid", 0, t.batch_size)
+    mixes = hb.sources.sum(axis=1)
+    sep = StreamingSeparator(model, buckets=BucketSpec(lengths=(t.chunk_samples,)))
+    est = np.stack(sep.separate_all(list(mixes), max_batch=t.batch_size))
+    if est.shape != hb.sources.shape or not np.isfinite(est).all():
+        raise AssertionError(f"serving the trained run gave {est.shape}")
+    imp = sdr_improvement(torch.from_numpy(est).double(), torch.from_numpy(hb.sources).double(),
+                          torch.from_numpy(mixes).double()).numpy()
+
+    # B1's share of a step, from its launches and its time at the two shapes
+    x = torch.from_numpy(hb.sources).to(tr.device)
+    basis = tr.model.front.analysis_basis
+    b1_ms = (time_ms(lambda: framed_matmul(x.sum(dim=1), basis, 64))
+             + time_ms(lambda: framed_matmul(x.reshape(-1, x.shape[-1]), basis, 64)))
+    out = dict(steps=t.steps, batch=t.batch_size, chunk=t.chunk_samples, fit_s=fit_s,
+               ms_per_step=ms_step, steps_per_s=1e3 / ms_step, peak_bytes=peak,
+               valid_loss_init=valid0, valid_loss=valid, b1_ms_per_step=b1_ms,
+               b1_share=b1_ms / ms_step, served_si_sdri_db=float(imp.mean()), **step_check)
+    return out, launches
+
+
 def main() -> None:
     faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
     t_start = time.perf_counter()
@@ -360,6 +673,14 @@ def main() -> None:
     say(f"phase 2 kernels: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
+    grads = phase_gradients(gen)
+    for name, checks in grads["checks"].items():
+        if any(c["launched"] != 1 for c, _ in checks):
+            raise AssertionError(f"{name}: its backward launched the other kernel "
+                                 f"{[c['launched'] for c, _ in checks]} times, want 1 each")
+    say(f"phase 2b kernel gradients: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
     model = load_model_from_run(CKPT)
     speed, launches = phase_speed(model)
     say(f"main path (c1, 64 x 8 s, batch 8) on {card}: rtf {speed['rtf_pass2']:.6f} "
@@ -375,9 +696,22 @@ def main() -> None:
         raise AssertionError(f"SI-SDRi {quality['si_sdri_db']:.3f} dB < {QUALITY_MIN_DB} dB")
     say(f"phase 4 main path quality: {time.perf_counter() - t0:.2f} s")
 
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="amss_train_") as workdir:
+        train, train_launches = phase_train(workdir)
+    say(f"training (c1 2x300 E=20, batch {train['batch']} x {train['chunk']}, "
+        f"{train['steps']} steps) on {card}: {train['ms_per_step']:.3f} ms/step median "
+        f"after warm-up, {train['steps_per_s']:.2f} steps/s, peak memory "
+        f"{train['peak_bytes'] / 2**30:.3f} GiB, valid loss {train['valid_loss_init']:.4f} -> "
+        f"{train['valid_loss'][-1]:.4f}, B1 {train['b1_ms_per_step']:.4f} ms/step "
+        f"({100 * train['b1_share']:.2f}%), launches {train_launches}")
+    say(f"phase 5 training: {time.perf_counter() - t0:.2f} s")
+
     record = []
+    other = {"framed_matmul": "decode_ola", "decode_ola": "framed_matmul"}
     for name, (source, replaces, design) in KERNELS.items():
         k = kern[name]
+        worst, grad_tol = max(grads["checks"][name], key=lambda c: c[0]["grad_rel_err"])
         record.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": k["max_abs_err"], "tol": k["tol"],
@@ -386,8 +720,13 @@ def main() -> None:
             "bound_us": k["bound_ms"] * 1e3, "roofline_share": k["bound_ms"] / k["ms"],
             "bound_fp32_ms": k["bound_fp32_ms"], "bound_fp32_by": k["bound_fp32_by"],
             "design": design, **compiled[name],
+            "train_launches": train_launches[name],
+            "backward_route": f"cuda: {other[name]} kernel + plain dbasis product",
+            "backward_launches": sum(c["launched"] for c, _ in grads["checks"][name]),
+            "grad_max_abs_err": worst["grad_max_abs_err"], "grad_scale": worst["grad_scale"],
+            "grad_tol": grad_tol, **grads["times"][name],
         })
-    say(json.dumps({"main_path": speed, "quality": quality, "card": card,
+    say(json.dumps({"main_path": speed, "quality": quality, "training": train, "card": card,
                     "total_s": time.perf_counter() - t_start}))
     say(card)
     say(json.dumps({"kernels": record}))

@@ -1,4 +1,5 @@
-"""The port's msgpack reader against flax's, and its config loader."""
+"""The port's msgpack reader and writer against flax's, its checkpoint files,
+and its config loader."""
 
 import json
 from pathlib import Path
@@ -9,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from amss_tpu_torch.ckpt.checkpoint import load_params, msgpack_restore
+from amss_tpu_torch.ckpt.checkpoint import (
+    AsyncCheckpointer, load_params, msgpack_restore, msgpack_serialize, read_manifest,
+    restore_checkpoint, save_checkpoint, to_host)
 from amss_tpu_torch.utils.config import recipe_from_dict
 
 torch.set_num_threads(2)
@@ -97,3 +100,63 @@ def test_config_loader_accepts_the_c1_config():
     assert (m.sep.hidden, m.sep.layers, m.sep.embed_dim) == (300, 2, 40)
     assert m.front.feature_dim == 129 and m.front.frames_for(64000) == 997
     assert recipe.sample_rate == 8000
+
+
+def test_writes_flax_bytes_bit_for_bit():
+    rng = np.random.default_rng(2)
+    tree = {
+        "meta": {"step": 300, "metric": 0.25},
+        "state": {
+            "params": {"w": rng.standard_normal((7, 5)).astype(np.float32),
+                       "big": np.ones(70_000, np.float32), "empty": np.zeros((0, 3), np.float32),
+                       "i": np.arange(4, dtype=np.int32), "front": {}},
+            "many": {str(i): i * 1000 for i in range(20)},
+            "ints": {str(v): v for v in (0, 127, 128, 255, 256, 65_536, 2**33, -1, -32, -33,
+                                         -129, -40_000, -2**40)},
+            "step": np.asarray(12), "count": np.asarray(3, np.int32),
+            "s": "x" * 31, "t": "y" * 32, "u": "z" * 300, "none": None, "flag": False,
+            "scalar": np.float32(2.5), "f": 1e-3,
+        },
+    }
+    # to_bytes keeps the dicts' order; the port writes what it is given
+    assert msgpack_serialize(tree) == fser.to_bytes(tree)
+    with pytest.raises(TypeError):
+        msgpack_serialize({"t": (1, 2)})
+
+
+def test_to_host_sorts_as_a_jax_tree_map():
+    host = to_host({"b": torch.ones(2), "a": {"d": 3, "c": torch.zeros(1, dtype=torch.int32)}})
+    assert list(host) == ["a", "b"] and list(host["a"]) == ["c", "d"]
+    assert host["a"]["d"].dtype == np.int64 and host["a"]["c"].dtype == np.int32
+
+
+def test_save_keeps_latest_and_best_and_restores(tmp_path):
+    d = str(tmp_path)
+    state = {"params": {"w": torch.arange(6, dtype=torch.float32).reshape(2, 3)}, "step": 1}
+    save_checkpoint(d, state, step=1, metric=0.5)
+    state["params"]["w"] += 1
+    save_checkpoint(d, state, step=2, metric=0.7)  # worse: best stays at step 1
+    assert read_manifest(str(tmp_path / "ckpt_best.msgpack")) == {"step": 1, "metric": 0.5}
+    latest, manifest = restore_checkpoint(d)
+    assert manifest == {"step": 2, "metric": 0.7}
+    np.testing.assert_array_equal(latest["params"]["w"], state["params"]["w"].numpy())
+    best, _ = restore_checkpoint(d, best=True)
+    np.testing.assert_array_equal(best["params"]["w"], state["params"]["w"].numpy() - 1)
+    assert json.loads((tmp_path / "ckpt_latest.msgpack.json").read_text()) == manifest
+    # flax reads it as the JAX package would
+    raw = fser.msgpack_restore((tmp_path / "ckpt_latest.msgpack").read_bytes())
+    assert raw["meta"] == manifest and int(raw["state"]["step"]) == 1
+    assert not [p for p in tmp_path.iterdir() if p.name.startswith(".tmp_")]
+
+
+def test_async_checkpointer_writes_in_order_and_reports_a_failure(tmp_path):
+    ck = AsyncCheckpointer()
+    for step in (1, 2, 3):
+        ck.save(str(tmp_path), {"step": step}, step=step, metric=1.0 / step)
+    ck.wait()
+    assert read_manifest(str(tmp_path / "ckpt_latest.msgpack"))["step"] == 3
+    blocked = tmp_path / "file"
+    blocked.write_text("")
+    ck.save(str(blocked / "sub"), {"step": 1}, step=1)
+    with pytest.raises(RuntimeError, match="checkpoint write failed"):
+        ck.wait()
