@@ -365,3 +365,30 @@ class AsyncCheckpointer:
         if self._err is not None:
             err, self._err = self._err, None
             raise RuntimeError("a checkpoint write failed") from err
+
+
+def restore_subtree(directory: str, target: dict, keys: list[str]) -> dict:
+    """``target`` (a parameter tree of numpy arrays) with its ``keys``
+    subtrees overwritten from the ``params`` of a run dir's best checkpoint: the partial restore that puts a pretrained front into a
+    fine-tuning run.  A subtree whose keys or shapes differ from the target's
+    raises."""
+    tree, _ = restore_checkpoint(directory, best=True)
+    src = tree.get("params", tree)
+    out = dict(target)
+    for k in keys:
+        if k not in src:
+            raise KeyError(f"checkpoint at {directory} has no subtree {k!r}")
+        _check_like(target[k], src[k], k)
+        out[k] = src[k]
+    return out
+
+
+def _check_like(want, got, path: str) -> None:
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            raise ValueError(f"subtree {path}: keys {sorted(got) if isinstance(got, dict) else got!r}"
+                             f" != {sorted(want)}")
+        for k in want:
+            _check_like(want[k], got[k], f"{path}/{k}")
+    elif np.shape(got) != np.shape(want):
+        raise ValueError(f"subtree {path}: shape {np.shape(got)} != {np.shape(want)}")

@@ -1,6 +1,7 @@
 """Recipes of the ported paths, copies of ``amss_tpu/configs/recipes.py``:
-STFT 256/64 and a 2×300 BLSTM with E = 20, two speakers, batch 8 of 16384
-samples.  Keyword overrides go to ``TrainConfig``."""
+STFT 256/64 or the adaptive front (256 filters of 256 taps, stride 64, pool
+2), a 2×300 BLSTM with E = 20, two speakers, batch 8 of 16384 samples.
+Keyword overrides go to ``TrainConfig``."""
 
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from amss_tpu_torch.utils.config import (
 )
 
 _STFT = FrontConfig(kind="stft", win=256, hop=64)
+_ADAPT = FrontConfig(kind="adapt", n_filters=256, filter_len=256, stride=64, pool=2)
 _SEP = SeparatorConfig(hidden=300, layers=2, embed_dim=20)
 
 
@@ -22,6 +24,30 @@ def c1_stft_dpcl(**over) -> RecipeConfig:
         name="c1_stft_dpcl",
         model=ModelConfig(kind="dpcl", front=_STFT, sep=_SEP, nb_speakers=2),
         train=TrainConfig(**{"batch_size": 8, "chunk_samples": 16384, **over}),
+    )
+
+
+def c2_pretrain_adapt(**over) -> RecipeConfig:
+    """Config 2's prerequisite: autoencoder pretraining of the adaptive
+    filterbank on clean speech."""
+    return RecipeConfig(
+        name="c2_pretrain_adapt",
+        model=ModelConfig(kind="adapt_ae", front=_ADAPT, sep=_SEP, nb_speakers=2),
+        train=TrainConfig(**{"batch_size": 8, "chunk_samples": 16384, "lr": 1e-3, **over}),
+    )
+
+
+def c2_adapt_dpcl(pretrained_front: str | None = None, **over) -> RecipeConfig:
+    """Config 2: the adaptive front + deep clustering, fine-tuned end to end
+    from a pretrained front, which stays frozen for the first 200 steps."""
+    return RecipeConfig(
+        name="c2_adapt_dpcl",
+        model=ModelConfig(
+            kind="dpcl", front=_ADAPT, sep=_SEP, nb_speakers=2, recon_weight=0.2
+        ),
+        train=TrainConfig(**{"batch_size": 8, "chunk_samples": 16384, "lr": 3e-4, **over}),
+        pretrained_front=pretrained_front,
+        freeze_front_steps=200 if pretrained_front else 0,
     )
 
 

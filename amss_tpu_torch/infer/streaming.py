@@ -2,10 +2,12 @@
 (``amss_tpu/infer/streaming.py``).
 
 Utterances are grouped into length buckets and padded to the bucket with a
-prefix frame mask; each group runs ``model.separate`` once.  Every distinct
-(bucket, batch) shape is run once on zeros before the timed phase, so first-use
-costs (the kernels' build, cuDNN's set-up) are booked as warm-up, not serving
-time.  The timed phase ends on ``torch.cuda.synchronize()``.
+prefix frame mask; each group runs ``model.separate`` once.  Utterances longer
+than the largest bucket take the long-form path (``infer/long.py``) with
+chunks of the largest bucket, never truncated.  Every distinct shape is run
+once on zeros before it is timed, so first-use costs (the kernels' build,
+cuDNN's set-up) are booked as warm-up, not serving time.  Each timed phase
+ends on ``torch.cuda.synchronize()``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from amss_tpu_torch.infer.long import separate_long, warm_long
 from amss_tpu_torch.utils.device import resolve_device, synchronize
 
 
@@ -63,7 +66,7 @@ class StreamingSeparator:
         self.sample_rate = sample_rate
         self.buckets = buckets or BucketSpec()
         self.kw = separate_kwargs or {}
-        self._warm: set[tuple[int, int]] = set()
+        self._warm: set[tuple] = set()
         self.meter = RTFMeter()
 
     def _frame_count(self, t: int) -> int:
@@ -92,15 +95,25 @@ class StreamingSeparator:
         """Separate a corpus of variable-length utterances.
 
         Returns per-utterance arrays [S, T_orig] in input order and books the
-        compute time against the audio time in ``self.meter``."""
+        compute time against the audio time in ``self.meter``.  Utterances
+        longer than the largest bucket go first, one ``separate_long`` call
+        each (one meter call each)."""
+        results: list[np.ndarray | None] = [None] * len(waves)
         max_bucket = self.buckets.lengths[-1]
-        if any(len(w) > max_bucket for w in waves):
-            raise NotImplementedError(
-                f"utterances longer than the largest bucket ({max_bucket} samples) "
-                "take the long-form path (infer/long.py), which is not ported yet: "
-                "slice 'long-form'"
-            )
-        order = sorted(range(len(waves)), key=lambda i: len(waves[i]))
+        long_idx = [i for i in range(len(waves)) if len(waves[i]) > max_bucket]
+        if long_idx and ("long", max_bucket) not in self._warm:
+            self.meter.warmup_seconds += warm_long(self.model, chunk=max_bucket, **self.kw)
+            self._warm.add(("long", max_bucket))
+        for i in long_idx:
+            t0 = time.perf_counter()
+            results[i] = separate_long(self.model, waves[i], chunk=max_bucket, **self.kw)
+            self.meter.compute_seconds += time.perf_counter() - t0
+            self.meter.audio_seconds += len(waves[i]) / self.sample_rate
+            self.meter.utterances += 1
+            self.meter.calls += 1
+
+        order = sorted((i for i in range(len(waves)) if results[i] is None),
+                       key=lambda i: len(waves[i]))
         groups: list[list[int]] = []
         current = None
         for i in order:
@@ -121,7 +134,6 @@ class StreamingSeparator:
             packed.append((mix, fmask))
             self._warm_up(bucket, len(g))
 
-        results: list[np.ndarray | None] = [None] * len(waves)
         t0 = time.perf_counter()
         outs = [self._run(mix, fmask) for mix, fmask in packed]
         for est, g in zip(outs, groups):

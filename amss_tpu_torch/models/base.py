@@ -2,10 +2,11 @@
 the front, the normalised BLSTM trunk, the training targets, and mask
 application.
 
-The port has the BLSTM trunk with the global (instance) feature norm in
-float32; other trunks, norms and compute types raise until their slice.  The
-JAX package's train-time corruptions (noise, reverberation, dropped sources)
-are drawn from a JAX key; here they raise until ROADMAP item 20 ports them.
+The port has the BLSTM trunk with the global (instance) or per-channel
+feature norm in float32; other trunks, norms and compute types raise until
+their slice.  The JAX package's train-time corruptions (noise,
+reverberation, dropped sources) are drawn from a JAX key; here they raise
+until ROADMAP item 20 ports them.
 """
 
 from __future__ import annotations
@@ -14,7 +15,13 @@ import torch
 from torch import nn
 
 from amss_tpu_torch.models.blstm import BLSTM
-from amss_tpu_torch.models.front import bin_weights, ideal_binary_mask, instance_norm, make_front
+from amss_tpu_torch.models.front import (
+    bin_weights,
+    channel_norm,
+    ideal_binary_mask,
+    instance_norm,
+    make_front,
+)
 from amss_tpu_torch.utils.config import ModelConfig
 
 _EPS = 1e-8
@@ -30,7 +37,7 @@ class SeparatorBase(nn.Module):
             raise NotImplementedError(f"trunk {sep.trunk!r} is not ported yet")
         if sep.compute_dtype != "float32":
             raise NotImplementedError(f"compute_dtype {sep.compute_dtype!r} is not ported yet")
-        if sep.feature_norm in ("channel", "cumulative"):
+        if sep.feature_norm == "cumulative":
             raise NotImplementedError(f"feature_norm {sep.feature_norm!r} is not ported yet")
         self.cfg = cfg
         self.front = make_front(cfg.front)
@@ -42,7 +49,8 @@ class SeparatorBase(nn.Module):
 
     def trunk(self, feats: torch.Tensor, frame_mask: torch.Tensor | None = None) -> torch.Tensor:
         """features [B, T', F] -> [B, T', 2H]."""
-        return self.blstm(instance_norm(feats, frame_mask), frame_mask)
+        norm = channel_norm if self.cfg.sep.feature_norm == "channel" else instance_norm
+        return self.blstm(norm(feats, frame_mask), frame_mask)
 
     def _check_no_corruption(self) -> None:
         c = self.cfg
@@ -89,7 +97,9 @@ class SeparatorBase(nn.Module):
         masks: torch.Tensor,  # [B, T', F, S]
         length: int,
     ) -> torch.Tensor:
-        """Masked codes per speaker -> waveforms [B, S, T]."""
+        """Masked codes per speaker -> waveforms [B, S, T].  Tensors of
+        ``aux`` gain the speaker axis; anything else (the adaptive front's
+        ``t_frames``) passes through."""
         masked = torch.movedim(codes[..., None] * masks, -1, 1)  # [B, S, T', F]
-        aux_b = {k: v[:, None] for k, v in aux.items()}
+        aux_b = {k: v[:, None] if isinstance(v, torch.Tensor) else v for k, v in aux.items()}
         return self.front.decode(masked, aux_b, length)

@@ -48,7 +48,8 @@ class DPCLModel(SeparatorBase):
         """Draw the parameters from the JAX package's distributions
         (``init_blstm_stack`` and ``_init_dense``): the LSTM's wx and wh
         uniform in ±1/√hidden, its bias 0 with the forget gate at 1.0; the
-        dense head uniform in ±1/√n_in, its bias 0.  ``generator`` is a CPU
+        dense head uniform in ±1/√n_in, its bias 0; a learned front's own
+        init (``AdaptFrontEnd.init_parameters``).  ``generator`` is a CPU
         generator, so a seed gives the same weights on any device; it cannot
         replay ``jax.random``."""
         hidden = self.cfg.sep.hidden
@@ -67,6 +68,8 @@ class DPCLModel(SeparatorBase):
         n_in = self.proj.in_features
         self.proj.weight.copy_(uniform((n_in, self.proj.out_features), 1.0 / math.sqrt(n_in)).T)
         self.proj.bias.zero_()
+        if hasattr(self.front, "init_parameters"):  # a learned front, drawn last
+            self.front.init_parameters(generator)
 
     def loss(self, sources: torch.Tensor, training: bool = False) -> tuple[torch.Tensor, dict]:
         """Training objective from the source chunks [B, S, T], mixed on the

@@ -1,4 +1,6 @@
-"""The STFT front and the mask helpers of the main path (``amss_tpu/models/front.py``).
+"""The STFT front, the feature norms and the mask helpers
+(``amss_tpu/models/front.py``); ``make_front`` also builds the adaptive front
+of ``models/adapt.py``.
 
 ``encode(wave) -> (codes, aux)``: magnitudes and the unit mixture phase.
 ``features(codes)``: log-compressed separator input.
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from amss_tpu_torch.models.adapt import AdaptFrontEnd
 from amss_tpu_torch.ops.kernels.framed_matmul import framed_matmul, stft_basis
 from amss_tpu_torch.ops.kernels.ola import decode_ola
 from amss_tpu_torch.ops.stft import cola_norm, hann_window, idft_matrices
@@ -64,12 +67,12 @@ class STFTFrontEnd(nn.Module):
         return y.reshape(*lead, length)
 
 
-def make_front(cfg: FrontConfig) -> STFTFrontEnd:
+def make_front(cfg: FrontConfig) -> nn.Module:
     if cfg.kind == "stft":
         return STFTFrontEnd(cfg)
-    raise NotImplementedError(
-        f"front kind {cfg.kind!r} is not ported yet (slice 1 covers 'stft')"
-    )
+    if cfg.kind == "adapt":
+        return AdaptFrontEnd(cfg)
+    raise ValueError(f"unknown front kind {cfg.kind!r}")
 
 
 def vad_weights(mix_codes: torch.Tensor, threshold_db: float = 40.0) -> torch.Tensor:
@@ -118,6 +121,22 @@ def instance_norm(
         )
         mu = (feats * m).sum(dim=(-2, -1), keepdim=True) / denom
         var = (m * (feats - mu) ** 2).sum(dim=(-2, -1), keepdim=True) / denom
+    return (feats - mu) * (1.0 / torch.sqrt(var + 1e-5))
+
+
+def channel_norm(
+    feats: torch.Tensor, frame_mask: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Per-channel zero mean, unit variance over time, padding-aware: the
+    learned fronts' norm, whose filters' output scales are arbitrary."""
+    if frame_mask is None:
+        mu = feats.mean(dim=-2, keepdim=True)
+        var = feats.var(dim=-2, keepdim=True, unbiased=False)
+    else:
+        m = frame_mask[..., None]
+        denom = torch.clamp(m.sum(dim=-2, keepdim=True), min=1.0)
+        mu = (feats * m).sum(dim=-2, keepdim=True) / denom
+        var = (m * (feats - mu) ** 2).sum(dim=-2, keepdim=True) / denom
     return (feats - mu) * (1.0 / torch.sqrt(var + 1e-5))
 
 

@@ -1,10 +1,16 @@
 """The training engine (``amss_tpu/train/engine.py``): one fit loop for a
 recipe, with periodic validation, checkpoints and best-checkpoint retention.
 
-A step mixes on the device, runs the front (kernel B1 on a card), the BLSTM,
-the head and the loss, then clips by the global norm and takes an Adam step,
-all without waiting for the device on the host.  The host draws batches on a
-background thread (``data/prefetch.py``) and ships the sources as int16.
+A step mixes on the device, runs the front (kernel B1 on a card; the
+adaptive front also B2 and, in its backward, B1 again), the BLSTM, the head
+and the loss, then clips by the global norm and takes an Adam step, all
+without waiting for the device on the host.  The recipes ported are c1, c5,
+c2_pretrain (the filterbank autoencoder) and c2, which restores a pretrained
+front and keeps it frozen for ``freeze_front_steps``: its gradients are
+scaled by 0 before the clip, so Adam's moments and update stay 0 and the
+front's tensors stay bit for bit what was restored.  The host draws batches
+on a background thread (``data/prefetch.py``) and ships the sources as
+int16.
 
 A run dir is named ``<recipe>_<run id>`` with the JAX package's run id, and
 holds the same files: ``config.json``, ``corpus.json``, ``metrics.jsonl`` and
@@ -30,9 +36,10 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
-from amss_tpu_torch.ckpt.checkpoint import AsyncCheckpointer, restore_checkpoint
+from amss_tpu_torch.ckpt.checkpoint import AsyncCheckpointer, restore_checkpoint, restore_subtree
 from amss_tpu_torch.data.mixer import Mixer
 from amss_tpu_torch.data.prefetch import Prefetcher
+from amss_tpu_torch.models.adapt import AdaptAutoencoder
 from amss_tpu_torch.models.dpcl import DPCLModel
 from amss_tpu_torch.train.optim import Adam, AdamState, make_schedule
 from amss_tpu_torch.utils.config import ModelConfig, RecipeConfig, recipe_to_dict, run_id
@@ -42,13 +49,14 @@ from amss_tpu_torch.weights import jax_tree, named_from_jax
 
 # model kind -> the slice of the port (ROADMAP A) that brings it
 _LATER = {"l41": "item 17 (L41 and Chimera)", "chimera": "item 17 (L41 and Chimera)",
-          "tasnet": "item 15 (TasNet flagship)", "adapt_ae": "item 14 (adaptive front)",
-          "enhance": "item 18 (count and enhance)"}
+          "tasnet": "item 15 (TasNet flagship)", "enhance": "item 18 (count and enhance)"}
 
 
-def make_model(cfg: ModelConfig) -> DPCLModel:
+def make_model(cfg: ModelConfig) -> DPCLModel | AdaptAutoencoder:
     if cfg.kind == "dpcl":
         return DPCLModel(cfg)
+    if cfg.kind == "adapt_ae":
+        return AdaptAutoencoder(cfg)
     if cfg.kind in _LATER:
         raise NotImplementedError(
             f"model kind {cfg.kind!r} is not ported yet: ROADMAP {_LATER[cfg.kind]}")
@@ -84,10 +92,10 @@ class Trainer:
         if t.data_axis != 1:
             raise NotImplementedError(
                 f"train.data_axis={t.data_axis}: multi-GPU data parallel is ROADMAP item 23")
-        if recipe.pretrained_front or recipe.base_run:
+        if recipe.base_run:
             raise NotImplementedError(
-                "pretrained_front and base_run come with the adaptive front and enhance "
-                "slices: ROADMAP items 14 and 18")
+                "base_run (the enhance model over a trained separator) is not ported yet: "
+                "ROADMAP item 18")
         if t.batch_size % max(t.accum_steps, 1) != 0:
             raise ValueError(
                 f"batch_size {t.batch_size} not divisible by accum_steps {t.accum_steps}")
@@ -116,12 +124,17 @@ class Trainer:
     # -- states ------------------------------------------------------------
     def init_state(self) -> dict:
         """A fresh state: parameters drawn from a CPU generator seeded with
-        ``train.seed``, zero moments, step 0."""
+        ``train.seed``, zero moments, step 0.  With ``pretrained_front`` set,
+        the front's parameters come from that run dir's best checkpoint."""
         gen = torch.Generator().manual_seed(self.recipe.train.seed)
         model = make_model(self.recipe.model)
         model.init_parameters(gen)
-        params = {n: p.detach().to(self.device) for n, p in model.named_parameters()}
-        return self._fresh_state(params)
+        params = {n: p.detach() for n, p in model.named_parameters()}
+        if self.recipe.pretrained_front:
+            tree = restore_subtree(self.recipe.pretrained_front,
+                                   jax_tree(params, self.recipe.model.sep.layers), keys=["front"])
+            params.update(named_from_jax({"front": tree["front"]}))
+        return self._fresh_state({n: v.to(self.device) for n, v in params.items()})
 
     def _fresh_state(self, params: dict) -> dict:
         state = {"params": params, "step": 0,
@@ -183,7 +196,7 @@ class Trainer:
         ``{"params": ...}`` alone for fresh moments at step 0)."""
 
         def named(t: dict) -> dict:
-            return {n: v.to(self.device) for n, v in named_from_jax(t["separator"]).items()}
+            return {n: v.to(self.device) for n, v in named_from_jax(t).items()}
 
         state = self._fresh_state(named(tree["params"]))
         if "opt_state" in tree:
@@ -365,9 +378,9 @@ class Trainer:
         return vloss
 
     def _image_summaries(self, step: int) -> None:
-        """Log-spectrogram images of one valid mixture and of the first
-        speaker separated from it.  Best-effort: a failure is logged once and
-        the summaries stop, training goes on."""
+        """Log-spectrogram images of one valid mixture and, for a model that
+        separates, of the first speaker separated from it.  Best-effort: a
+        failure is logged once and the summaries stop, training goes on."""
         if self._warned_summaries:
             return
         try:
@@ -378,6 +391,8 @@ class Trainer:
                 codes, _ = front.encode(mix)
                 self.writer.image(step + 1, "valid/mix_log_spectrogram",
                                   front.features(codes)[0].T.cpu().numpy())
+                if not hasattr(self.model, "separate"):
+                    return
                 est = self.model.separate(mix)
                 ecodes, _ = front.encode(est[:, 0])
                 self.writer.image(step + 1, "valid/est0_log_spectrogram",

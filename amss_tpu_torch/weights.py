@@ -1,10 +1,13 @@
 """Carrying parameters between the JAX package's tree and the port's modules,
 in both directions.
 
-The JAX tree is ``{"front": {}, "separator": {"blstm": layers, "proj": {w,
-b}}}``, each BLSTM layer ``{"fwd": {wx, wh, b}, "bwd": {...}}``.  A
-checkpoint keys the layers "0", "1", ...; the port's names are those of
-``DPCLModel.named_parameters()``."""
+The JAX tree is ``{"front": front, "separator": {"blstm": layers, "proj":
+{w, b}}}``, each BLSTM layer ``{"fwd": {wx, wh, b}, "bwd": {...}}``.  The
+front is ``{}`` for the STFT front (its bases are buffers computed from the
+config) and ``{enc, dec, smooth}`` for the adaptive front, in the port's
+layouts; the autoencoder's tree has the front alone.  A checkpoint keys the
+layers "0", "1", ...; the port's names are those of ``named_parameters()``
+(``front.enc``, ``blstm.lstm.*``, ``proj.*``)."""
 
 from __future__ import annotations
 
@@ -41,12 +44,15 @@ def lstm_state(layers) -> dict:
     return state
 
 
-def named_from_jax(sep: dict) -> dict:
-    """The port's named tensors (``blstm.lstm.*``, ``proj.*``) from a JAX
-    ``separator`` tree, ``bias_hh`` included as zeros."""
-    named = {"blstm.lstm." + k: v for k, v in lstm_state(sep["blstm"]).items()}
-    named["proj.weight"] = _t(sep["proj"]["w"]).T
-    named["proj.bias"] = _t(sep["proj"]["b"])
+def named_from_jax(tree: dict) -> dict:
+    """The port's named tensors (``front.*``, ``blstm.lstm.*``, ``proj.*``)
+    from a JAX parameter tree, ``bias_hh`` included as zeros."""
+    named = {"front." + k: _t(v) for k, v in tree.get("front", {}).items()}
+    sep = tree.get("separator")
+    if sep is not None:
+        named.update({"blstm.lstm." + k: v for k, v in lstm_state(sep["blstm"]).items()})
+        named["proj.weight"] = _t(sep["proj"]["w"]).T
+        named["proj.bias"] = _t(sep["proj"]["b"])
     return named
 
 
@@ -58,7 +64,11 @@ def jax_tree(named: dict, layers: int) -> dict:
     """The JAX tree, as numpy arrays, of named tensors laid out as the port's
     parameters: the parameters themselves, or Adam's moments or gradients of
     them.  ``b = bias_ih + bias_hh`` where both are present, else ``bias_ih``.
-    Layers are keyed "0", "1", ... as a checkpoint stores them."""
+    Layers are keyed "0", "1", ... as a checkpoint stores them.  Without a
+    ``proj.weight`` (the autoencoder) the tree has the front alone."""
+    front = {n[len("front."):]: _np(v) for n, v in named.items() if n.startswith("front.")}
+    if "proj.weight" not in named:
+        return {"front": front}
     blstm = {}
     for i in range(layers):
         layer = {}
@@ -71,7 +81,7 @@ def jax_tree(named: dict, layers: int) -> dict:
                                 "wh": _np(named[pre + "weight_hh" + sfx].T), "b": _np(b)}
         blstm[str(i)] = layer
     proj = {"w": _np(named["proj.weight"].T), "b": _np(named["proj.bias"])}
-    return {"front": {}, "separator": {"blstm": blstm, "proj": proj}}
+    return {"front": front, "separator": {"blstm": blstm, "proj": proj}}
 
 
 def params_to_jax(model: DPCLModel) -> dict:
@@ -83,20 +93,20 @@ def params_to_jax(model: DPCLModel) -> dict:
 def params_from_jax(cfg: ModelConfig, params: dict, device=None) -> DPCLModel:
     """A ``DPCLModel`` holding a JAX parameter tree given as numpy arrays.
 
-    ``params`` is ``{"front": {}, "separator": {"blstm": layers, "proj": {w, b}}}``
-    with ``layers`` a list, or a dict keyed "0", "1", ... as a checkpoint
-    stores it.  Each LSTM direction maps as ``weight_ih = wxᵀ``,
+    ``params`` is ``{"front": front, "separator": {"blstm": layers, "proj":
+    {w, b}}}`` with ``layers`` a list, or a dict keyed "0", "1", ... as a
+    checkpoint stores it.  Each LSTM direction maps as ``weight_ih = wxᵀ``,
     ``weight_hh = whᵀ``, ``bias_ih = b``, ``bias_hh = 0``; the dense head as
-    ``weight = wᵀ``."""
+    ``weight = wᵀ``; a learned front's tensors as they are."""
     device = resolve_device(device)
     model = DPCLModel(cfg)
     sep = params["separator"]
     layers = sep["blstm"]
     if len(layers) != cfg.sep.layers:
         raise ValueError(f"{len(layers)} BLSTM layers in the params, config says {cfg.sep.layers}")
-    state = named_from_jax(sep)
-    # the front's bases are buffers computed from the config, not parameters
-    state.update({k: v for k, v in model.state_dict().items() if k.startswith("front.")})
+    state = named_from_jax(params)
+    # the STFT front's bases are buffers computed from the config
+    state.update({k: v for k, v in model.named_buffers() if k.startswith("front.")})
     model.load_state_dict(state, strict=True)
     return model.to(device).eval()
 

@@ -10,8 +10,8 @@ Phases, each printing its wall seconds:
    read each kernel's registers and spills (ptxas) and its tensor-core
    instructions (``cuobjdump -sass``);
 2. kernels: each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at edge shapes (ragged frame counts, K not a
-   multiple of 8, trimmed lengths), and timed beside its plain version, one
+   main path's shapes, at long-form's tail-group shapes and at edge shapes
+   (ragged frame counts, K not a multiple of 8, trimmed lengths), and timed beside its plain version, one
    PyTorch library call computing the same function, and its two bounds;
 2b. gradients: each kernel's autograd (its backward runs the other kernel)
    against torch autograd of its plain version on the card, at the training
@@ -27,7 +27,23 @@ Phases, each printing its wall seconds:
    synthetic corpus written from seed 0.  The card's first step is held
    against the same step on the CPU; B1's launches are counted; one step runs
    with no host sync; the valid loss must fall; the last checkpoint must
-   reload bit for bit and serve one batch.
+   reload bit for bit and serve one batch;
+6. the adaptive front's kernels: B1 and B2 with the learned bases of
+   ``checkpoints/c2_adapt`` at c2's serving and training shapes, forward
+   against the plain versions and gradients against their autograd, timed
+   beside the library calls and the bounds;
+7. c2 serving: ``checkpoints/c2_adapt`` through ``StreamingSeparator`` as in
+   phase 3, and its quality on phase 4's protocol, which must reach
+   C2_QUALITY_MIN_DB;
+8. c2 training at full width: c2_pretrain (the filterbank autoencoder, 16
+   waves of 16384 samples a step), then c2 fine-tuned from that run's front
+   (2x300 BLSTM, E = 20), each for a cut number of steps, with phase 5's
+   checks; the front must stay bit for bit the restored one through the
+   freeze window and move after it;
+9. long-form serving: c1 on a corpus of phase 3's utterances and two-speaker
+   mixtures of 60 s and 90 s, which take ``separate_long`` in chunks of
+   64000 samples, twice; launch counts, RTF, and the long mixtures' quality,
+   which must reach LONG_QUALITY_MIN_DB.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero,
@@ -36,6 +52,7 @@ and so does a machine without a CUDA device.
 
 from __future__ import annotations
 
+import dataclasses
 import faulthandler
 import json
 import os
@@ -51,6 +68,7 @@ import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(REPO, "checkpoints", "c1_dpcl")
+C2_CKPT = os.path.join(REPO, "checkpoints", "c2_adapt")
 TIME_LIMIT_S = 900  # the whole run; a hang ends with a traceback and exit 1
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA data sheet): dense TF32 on
@@ -89,6 +107,27 @@ STEP_GRAD_TOL = 1e-3
 # relative to the reference's largest magnitude.  3xTF32 gives under 1e-6;
 # a single-pass TF32 kernel is off by about 1e-3 and fails.
 GRAD_TOL = 2e-5
+
+# phase 7: c2_adapt scores about 6.9 dB on phase 4's protocol: the JAX package
+# gives 6.893 dB [6.478, 7.316] (n = 64) in FP32 on the CPU and the port agrees
+# (tests/test_torch_c2_slice.py).  The gate sits at the lower end of the
+# reference's 95% interval.
+C2_QUALITY_MIN_DB = 6.47
+# phase 8: the recipes at full width, cut to C2_PRETRAIN_STEPS and C2_STEPS
+# steps (the recipes say 1000), the front frozen for C2_FREEZE_STEPS (the
+# recipe says 200), on phase 5's corpus
+C2_PRETRAIN_STEPS = 200
+C2_STEPS = 200
+C2_FREEZE_STEPS = 100
+C2_VALID_EVERY = 100
+# phase 9: two-speaker mixtures of 60 s and 90 s in turn (8 and 12 chunks of
+# 64000 samples), speakers from seed LONG_SEED0 on.  c1_dpcl scores 4.819 dB
+# [3.556, 6.010] (n = 8) on them through the JAX package's long-form path in
+# FP32 on the CPU (python tests/test_torch_long.py); the gate sits at the lower
+# end of that 95% interval.
+LONG_SECONDS = (60, 90) * 4
+LONG_SEED0 = 30000
+LONG_QUALITY_MIN_DB = 3.55
 
 # name -> (source, the TPU kernel it replaces, its design)
 KERNELS = {
@@ -235,6 +274,10 @@ def phase_kernels(gen: torch.Generator) -> dict:
         lib_out = F.conv1d(x[:, None, :], w_conv, stride=hop).transpose(1, 2)
         log(f"  conv1d yardstick max_abs_err {max_err(lib_out, got):.3e}")
         b1_lib = time_ms(lambda: F.conv1d(x[:, None, :], w_conv, stride=hop))
+    x4 = x[:4]  # long-form's tail group: 4 chunks of 64000
+    y4 = framed_matmul(x4, basis, hop)
+    check(f"256/64 K=258 [4, 64000] (STFT, long-form tail group; |out| <= "
+          f"{float(y4.abs().max()):.3g})", y4, framed_matmul_ref(x4, basis, hop), 2e-3)
     b1 = dict(ms=time_ms(lambda: framed_matmul(x, basis, hop)),
               plain_ms=time_ms(lambda: framed_matmul_ref(x, basis, hop)),
               library_ms=b1_lib, max_abs_err=b1_err, tol=2e-3, **b1_bounds)
@@ -248,6 +291,10 @@ def phase_kernels(gen: torch.Generator) -> dict:
     y = decode_ola(codes, syn, hop, length=length)
     b2_err = check("258x256 hop 64 [16, 997, 258] -> 64000 (iSTFT)", y,
                    decode_ola_ref(codes, syn, hop, length), 2e-4)
+    c8 = codes[:8]  # long-form's tail group: 4 chunks x 2 speakers
+    y8 = decode_ola(c8, syn, hop, length=length)
+    check(f"258x256 hop 64 [8, 997, 258] -> 64000 (iSTFT, long-form tail group; |out| <= "
+          f"{float(y8.abs().max()):.3g})", y8, decode_ola_ref(c8, syn, hop, length), 2e-4)
     for nb, nf_e, k_e, win_e, hop_e, len_e, what in (
         (2, 40, 96, 256, 128, None, "hop 128"),
         (2, 45, 258, 512, 128, 5000, "512/128 K=258 length 5000 trim"),
@@ -405,6 +452,91 @@ def phase_gradients(gen: torch.Generator) -> dict:
     return {"checks": out, "times": times}
 
 
+def phase_kernels_c2(gen: torch.Generator) -> dict:
+    """B1 and B2 with c2_adapt's learned bases (enc [256, 256], dec [256,
+    256], stride 64) at c2's serving and training shapes: forward against the
+    plain versions, gradients against their autograd, and the serving shape
+    timed beside the plain version, the library call and the bounds."""
+    from amss_tpu_torch.ckpt.checkpoint import load_params
+    from amss_tpu_torch.ops.kernels.framed_matmul import framed_matmul, framed_matmul_ref
+    from amss_tpu_torch.ops.kernels.ola import decode_ola, decode_ola_ref
+    from amss_tpu_torch.utils.timing import time_ms
+
+    dev = torch.device("cuda")
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    front = load_params(C2_CKPT)["front"]
+    enc = torch.as_tensor(front["enc"], device=dev)
+    dec = torch.as_tensor(front["dec"], device=dev)
+    hop, length = 64, SECONDS * SAMPLE_RATE
+    say("c2: B1 framed_matmul with the learned encoder vs framed_matmul_ref")
+    x = randn(BATCH, length, scale=0.3)
+    z = framed_matmul(x, enc, hop)
+    b1_err = check(f"enc [256, 256] [8, 64000] (c2 serving; |out| <= {float(z.abs().max()):.3g})",
+                   z, framed_matmul_ref(x, enc, hop), 2e-4)
+    for shape, what in (((8, 16384), "c2 training mixture"), ((16, 16384), "c2 sources, AE")):
+        xs = randn(*shape, scale=0.3)
+        check(f"enc [256, 256] {list(shape)} ({what})", framed_matmul(xs, enc, hop),
+              framed_matmul_ref(xs, enc, hop), 2e-4)
+    say("c2: B2 decode_ola with the learned decoder vs decode_ola_ref")
+    # unpooled, signed codes of 8 utterances x 2 speakers: T' = 996 (997 trimmed to pool 2)
+    codes = torch.cat([z[:, :996], 0.5 * z[:, :996]]).contiguous()
+    y = decode_ola(codes, dec, hop, length=length)
+    b2_err = check(f"dec [256, 256] [16, 996, 256] -> 64000 (c2 serving; "
+                   f"|out| <= {float(y.abs().max()):.3g})", y,
+                   decode_ola_ref(codes, dec, hop, length), 2e-4)
+    zt = randn(8, 252, 256, scale=0.3)
+    check("dec [256, 256] [8, 252, 256] -> 16384 (c2 recon)", decode_ola(zt, dec, hop, 16384),
+          decode_ola_ref(zt, dec, hop, 16384), 2e-4)
+
+    out = {}
+    b, nf, k = z.shape
+    w_conv = enc.T.contiguous()[:, None, :]
+    codes_t = codes.transpose(1, 2).contiguous()
+    w_t = dec[:, None, :].contiguous()
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        b1_lib = time_ms(lambda: F.conv1d(x[:, None, :], w_conv, stride=hop))
+        b2_lib = time_ms(lambda: F.conv_transpose1d(codes_t, w_t, stride=hop)[:, 0, :length])
+    out["framed_matmul"] = dict(
+        shape="x [8, 64000] x enc [256, 256], hop 64",
+        ms=time_ms(lambda: framed_matmul(x, enc, hop)),
+        plain_ms=time_ms(lambda: framed_matmul_ref(x, enc, hop)), library_ms=b1_lib,
+        max_abs_err=b1_err, tol=2e-4,
+        **bound(2.0 * b * nf * k * enc.shape[0], 4.0 * (x.numel() + enc.numel() + b * nf * k)))
+    b2n, nf2, k2 = codes.shape
+    out["decode_ola"] = dict(
+        shape="codes [16, 996, 256] x dec [256, 256], hop 64 -> 64000",
+        ms=time_ms(lambda: decode_ola(codes, dec, hop, length=length)),
+        plain_ms=time_ms(lambda: decode_ola_ref(codes, dec, hop, length)), library_ms=b2_lib,
+        max_abs_err=b2_err, tol=2e-4,
+        **bound(2.0 * b2n * nf2 * k2 * dec.shape[1],
+                4.0 * (codes.numel() + dec.numel() + b2n * length)))
+
+    say("c2: gradients with the learned bases vs autograd of the plain versions")
+    grads = {"framed_matmul": [], "decode_ola": []}
+    for what, xg in (("x [8, 16384] enc [256, 256] (c2 training)", randn(8, 16384, scale=0.3)),
+                     ("x [16, 16384] enc [256, 256] (c2_pretrain)", randn(16, 16384, scale=0.3))):
+        cot = randn(xg.shape[0], 1 + (xg.shape[1] - 256) // hop, 256)
+        grads["framed_matmul"].append(grad_check(
+            what, lambda a, e: framed_matmul(a, e, hop), lambda a, e: framed_matmul_ref(a, e, hop),
+            [xg, enc], cot, 2e-4, decode_ola))
+    for what, cg, n in (("codes [8, 252, 256] dec [256, 256] -> 16384 (c2 recon)",
+                         randn(8, 252, 256, scale=0.3), 16384),
+                        ("codes [16, 252, 256] dec [256, 256] -> 16384 (c2_pretrain)",
+                         randn(16, 252, 256, scale=0.3), 16384),
+                        ("codes [16, 996, 256] dec [256, 256] -> 64000 (c2 serving)",
+                         codes, length)):
+        cot = randn(cg.shape[0], n)
+        grads["decode_ola"].append(grad_check(
+            what, lambda c, d, n=n: decode_ola(c, d, hop, n),
+            lambda c, d, n=n: decode_ola_ref(c, d, hop, n), [cg, dec], cot, 2e-4, framed_matmul))
+    for name, checks in grads.items():
+        out[name]["grad_checks"] = checks
+    return out
+
+
 def check_kmeans_needs_no_host_sync(gen: torch.Generator) -> None:
     """k-means at the main path's size under CUDA's sync debug mode "error":
     any operation that waits for the device on the host raises."""
@@ -484,19 +616,24 @@ def phase_quality(model) -> dict:
 def first_step_matches_cpu(tr, state0: dict, batch0) -> dict:
     """The card's first step against the same step on the CPU through the
     port's plain path (plain kernels, the BLSTM as a loop), from the same init
-    and batch: the loss and every gradient."""
+    and batch: the loss, each term of it, and every gradient.
+
+    The autoencoder's loss, -SI-SDR + 10 L2, nearly cancels at init (about
+    0.007 from terms of about 1.2), so it is held relative to the size of its
+    terms, |neg_si_sdr| + 10 l2; each term is held relative to itself."""
     from amss_tpu_torch.train.engine import make_model
 
     def loss_and_grads(model, device):
         model.train()
         batch = tr._dequantize({k: v.to(device) for k, v in tr._device_batch(batch0).items()})
-        loss, _ = model.loss_from_batch(batch, training=True)
+        loss, metrics = model.loss_from_batch(batch, training=True)
         loss.backward()
-        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.requires_grad}
-        return float(loss.detach()), grads
+        grads = {n: None if p.grad is None else p.grad.detach().cpu()
+                 for n, p in model.named_parameters() if p.requires_grad}
+        return float(loss.detach()), {k: float(v) for k, v in metrics.items()}, grads
 
     tr.load_state(state0)
-    loss_gpu, grads_gpu = loss_and_grads(tr.model, tr.device)
+    loss_gpu, terms_gpu, grads_gpu = loss_and_grads(tr.model, tr.device)
     for p in tr.model.parameters():
         p.grad = None
     cpu = make_model(tr.recipe.model)
@@ -507,93 +644,70 @@ def first_step_matches_cpu(tr, state0: dict, batch0) -> dict:
     if keys.unexpected_keys or set(keys.missing_keys) - buffers:
         raise AssertionError(f"CPU twin: missing {keys.missing_keys}, "
                              f"unexpected {keys.unexpected_keys}")
-    loss_cpu, grads_cpu = loss_and_grads(cpu, torch.device("cpu"))
-    rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
-    say(f"  first step: loss card {loss_gpu:.7f} cpu {loss_cpu:.7f} ({rel:.2e} of it, "
+    loss_cpu, terms_cpu, grads_cpu = loss_and_grads(cpu, torch.device("cpu"))
+    scale = abs(loss_cpu)
+    if "neg_si_sdr" in terms_cpu:
+        scale = abs(terms_cpu.pop("neg_si_sdr")) + 10.0 * abs(terms_cpu["l2"])
+        terms_cpu.pop("ae_loss")
+    rel = abs(loss_gpu - loss_cpu) / scale
+    say(f"  first step: loss card {loss_gpu:.7f} cpu {loss_cpu:.7f} ({rel:.2e} of {scale:.4g}, "
         f"tol {STEP_LOSS_TOL:g})")
     if not rel <= STEP_LOSS_TOL:
         raise AssertionError(f"first step loss differs from the CPU's by {rel:.3e}")
+    for k, v in terms_cpu.items():
+        if not abs(terms_gpu[k] - v) <= STEP_LOSS_TOL * abs(v):
+            raise AssertionError(f"first step {k}: card {terms_gpu[k]} cpu {v}")
+    if set(grads_gpu) != set(grads_cpu):
+        raise AssertionError(f"gradients on the card {sorted(grads_gpu)}, on the CPU "
+                             f"{sorted(grads_cpu)}")
+    # every trainable parameter has a gradient, save the autoencoder's
+    # smoothing filter: its loss never reads the features
+    no_grad = {"front.smooth"} if tr.recipe.model.kind == "adapt_ae" else set()
+    for where, grads in (("card", grads_gpu), ("CPU", grads_cpu)):
+        missing = {n for n, g in grads.items() if g is None}
+        if missing != no_grad:
+            raise AssertionError(f"first step on the {where}: no gradient for "
+                                 f"{sorted(missing)}, want none for {sorted(no_grad)}")
     worst = 0.0
     for n, g in grads_cpu.items():
+        if g is None:
+            continue
         scale = float(g.abs().max())
         err = max_err(grads_gpu[n], g) / scale
         worst = max(worst, err)
         if not err <= STEP_GRAD_TOL:
             raise AssertionError(f"first step gradient {n}: {err:.3e} of {scale:.3g} "
                                  f"> {STEP_GRAD_TOL}")
-    say(f"  first step: {len(grads_cpu)} gradients, worst {worst:.2e} of each tensor's "
+    say(f"  first step: {len(grads_cpu) - len(no_grad)} gradients, worst {worst:.2e} of each tensor's "
         f"largest CPU magnitude (tol {STEP_GRAD_TOL:g})")
     return dict(loss_card=loss_gpu, loss_cpu=loss_cpu, loss_rel_err=rel, grad_worst_rel_err=worst)
 
 
-def check_train_step_needs_no_host_sync(tr, batch0) -> None:
+def check_train_step_needs_no_host_sync(tr, batch0) -> dict:
+    """One train step under CUDA's sync debug mode "error"; returns each
+    kernel's launches in that step."""
+    from amss_tpu_torch.ops.kernels.framed_matmul import framed_matmul
+    from amss_tpu_torch.ops.kernels.ola import decode_ola
+
     batch = tr._device_batch(batch0)
     torch.cuda.synchronize()
+    before = {"framed_matmul": framed_matmul.launches, "decode_ola": decode_ola.launches}
     torch.cuda.set_sync_debug_mode("error")
     try:
         tr._train_step(batch)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    say("  one train step (front, BLSTM, loss, backward, clip, Adam): no host sync")
+    per_step = {"framed_matmul": framed_matmul.launches - before["framed_matmul"],
+                "decode_ola": decode_ola.launches - before["decode_ola"]}
+    say(f"  one train step (front, trunk, loss, backward, clip, Adam): no host sync; "
+        f"launches {per_step}")
+    return per_step
 
 
-def phase_train(workdir: str) -> tuple[dict, dict]:
-    """c1 at full width through Trainer.fit; returns (results, launches)."""
+def check_checkpoint_reloads(tr, final: dict, steps: int) -> None:
+    """The run dir's latest checkpoint is ``final`` bit for bit."""
     from amss_tpu_torch.ckpt.checkpoint import restore_checkpoint
-    from amss_tpu_torch.configs.recipes import c1_stft_dpcl
-    from amss_tpu_torch.data.synthetic import make_synthetic_corpus
-    from amss_tpu_torch.infer.streaming import BucketSpec, StreamingSeparator
-    from amss_tpu_torch.ops.kernels.framed_matmul import framed_matmul
-    from amss_tpu_torch.ops.kernels.ola import decode_ola
-    from amss_tpu_torch.ops.metrics import sdr_improvement
-    from amss_tpu_torch.train.engine import Trainer
-    from amss_tpu_torch.utils.timing import time_ms
-    from amss_tpu_torch.weights import load_model_from_run
-
-    t0 = time.perf_counter()
-    store = make_synthetic_corpus(os.path.join(workdir, "corpus"), n_speakers=TRAIN_SPEAKERS,
-                                  seconds_per_speaker=TRAIN_SECONDS, seed=0, version=1)
-    recipe = c1_stft_dpcl(steps=TRAIN_STEPS, valid_every=TRAIN_VALID_EVERY)
-    t = recipe.train
-    tr = Trainer(recipe, store, workdir=os.path.join(workdir, "runs"))
-    say(f"  corpus {TRAIN_SPEAKERS} x {TRAIN_SECONDS:g} s and trainer: "
-        f"{time.perf_counter() - t0:.2f} s; run dir {os.path.basename(tr.dir)}")
-
-    state0 = tr.init_state()
-    batch0 = tr.mixer.batch("train", 0, t.batch_size)
-    step_check = first_step_matches_cpu(tr, state0, batch0)
-    check_train_step_needs_no_host_sync(tr, batch0)
-    tr.load_state(state0)
-    valid0 = tr.valid_loss()
-
-    wrappers = {"framed_matmul": framed_matmul, "decode_ola": decode_ola}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for w in wrappers.values():
-        w.launches = 0
-    t0 = time.perf_counter()
-    final = tr.fit(state0, log_every=TRAIN_LOG_EVERY)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    launches = {n: w.launches for n, w in wrappers.items()}
-    peak = torch.cuda.max_memory_allocated()
-
-    n_valid = -(-t.steps // t.valid_every)
-    # two STFTs (mixture, sources) per train step and per valid batch; the
-    # image summaries of each validation add three (mixture, separate, its
-    # first speaker) and separate's iSTFT one B2
-    want = {"framed_matmul": 2 * t.steps + 2 * t.valid_steps * n_valid + 3 * n_valid,
-            "decode_ola": n_valid}
-    if launches != want:
-        raise AssertionError(f"training launches {launches}, want {want}")
-
-    metrics = [json.loads(line) for line in open(os.path.join(tr.dir, "metrics.jsonl"))]
-    valid = [m["valid/loss"] for m in metrics if "valid/loss" in m]
-    rates = [m["train/steps_per_sec"] for m in metrics if "train/steps_per_sec" in m]
-    ms_step = 1e3 / float(np.median(rates[1:]))  # the first window holds the warm-up
-    if len(valid) != n_valid or not valid[-1] < valid0:
-        raise AssertionError(f"valid loss {valid0} at init, {valid} after training")
 
     tree, manifest = restore_checkpoint(tr.dir)
     want_tree = tr.state_tree(final)
@@ -609,9 +723,72 @@ def phase_train(workdir: str) -> tuple[dict, dict]:
             raise AssertionError(f"checkpoint {path} does not reload bit for bit")
 
     same(tree, want_tree)
-    if manifest["step"] != t.steps:
+    if manifest["step"] != steps:
         raise AssertionError(f"ckpt_latest is at step {manifest['step']}")
     say(f"  ckpt_latest.msgpack (step {manifest['step']}) reloads bit for bit")
+
+
+def training_corpus(workdir: str):
+    from amss_tpu_torch.data.synthetic import make_synthetic_corpus
+
+    t0 = time.perf_counter()
+    store = make_synthetic_corpus(os.path.join(workdir, "corpus"), n_speakers=TRAIN_SPEAKERS,
+                                  seconds_per_speaker=TRAIN_SECONDS, seed=0, version=1)
+    say(f"  corpus {TRAIN_SPEAKERS} x {TRAIN_SECONDS:g} s: {time.perf_counter() - t0:.2f} s")
+    return store
+
+
+def window_ms_per_step(run_dir: str, skip: set) -> float:
+    """The median ms per step over the logged windows of ``fit``, leaving out
+    the windows at the steps in ``skip`` (each fit's first holds its
+    warm-up)."""
+    rates = [m["train/steps_per_sec"] for m in
+             (json.loads(line) for line in open(os.path.join(run_dir, "metrics.jsonl")))
+             if "train/steps_per_sec" in m and m["step"] not in skip]
+    return 1e3 / float(np.median(rates))
+
+
+def phase_train(store, workdir: str) -> tuple[dict, dict]:
+    """c1 at full width through Trainer.fit; returns (results, launches)."""
+    from amss_tpu_torch.configs.recipes import c1_stft_dpcl
+    from amss_tpu_torch.infer.streaming import BucketSpec, StreamingSeparator
+    from amss_tpu_torch.ops.kernels.framed_matmul import framed_matmul
+    from amss_tpu_torch.ops.metrics import sdr_improvement
+    from amss_tpu_torch.train.engine import Trainer
+    from amss_tpu_torch.utils.timing import time_ms
+    from amss_tpu_torch.weights import load_model_from_run
+
+    recipe = c1_stft_dpcl(steps=TRAIN_STEPS, valid_every=TRAIN_VALID_EVERY)
+    t = recipe.train
+    tr = Trainer(recipe, store, workdir=os.path.join(workdir, "runs"))
+    say(f"  run dir {os.path.basename(tr.dir)}")
+
+    state0 = tr.init_state()
+    batch0 = tr.mixer.batch("train", 0, t.batch_size)
+    step_check = first_step_matches_cpu(tr, state0, batch0)
+    per_step = check_train_step_needs_no_host_sync(tr, batch0)
+    if per_step != {"framed_matmul": 2, "decode_ola": 0}:
+        raise AssertionError(f"a c1 train step launched {per_step}")
+    tr.load_state(state0)
+    valid0 = tr.valid_loss()
+
+    final, launches, fit_s, peak = _fit_counted(tr, state0)
+
+    n_valid = -(-t.steps // t.valid_every)
+    # two STFTs (mixture, sources) per train step and per valid batch; the
+    # image summaries of each validation add three (mixture, separate, its
+    # first speaker) and separate's iSTFT one B2
+    want = {"framed_matmul": 2 * t.steps + 2 * t.valid_steps * n_valid + 3 * n_valid,
+            "decode_ola": n_valid}
+    if launches != want:
+        raise AssertionError(f"training launches {launches}, want {want}")
+
+    metrics = [json.loads(line) for line in open(os.path.join(tr.dir, "metrics.jsonl"))]
+    valid = [m["valid/loss"] for m in metrics if "valid/loss" in m]
+    ms_step = window_ms_per_step(tr.dir, skip={TRAIN_LOG_EVERY})
+    if len(valid) != n_valid or not valid[-1] < valid0:
+        raise AssertionError(f"valid loss {valid0} at init, {valid} after training")
+    check_checkpoint_reloads(tr, final, t.steps)
 
     model = load_model_from_run(tr.dir)
     hb = tr.mixer.batch("valid", 0, t.batch_size)
@@ -631,7 +808,208 @@ def phase_train(workdir: str) -> tuple[dict, dict]:
     out = dict(steps=t.steps, batch=t.batch_size, chunk=t.chunk_samples, fit_s=fit_s,
                ms_per_step=ms_step, steps_per_s=1e3 / ms_step, peak_bytes=peak,
                valid_loss_init=valid0, valid_loss=valid, b1_ms_per_step=b1_ms,
-               b1_share=b1_ms / ms_step, served_si_sdri_db=float(imp.mean()), **step_check)
+               b1_share=b1_ms / ms_step, served_si_sdri_db=float(imp.mean()),
+               launches_per_step=per_step, **step_check)
+    return out, launches
+
+
+def long_mixtures() -> tuple[list, list]:
+    """Phase 9's two-speaker mixtures of LONG_SECONDS and their sources."""
+    from amss_tpu_torch.data.synthetic import synth_speaker_wave_v2
+
+    refs = [np.stack([synth_speaker_wave_v2(LONG_SEED0 + 2 * i + j, n_samples=s * SAMPLE_RATE)
+                      for j in range(2)]).astype(np.float32) for i, s in enumerate(LONG_SECONDS)]
+    return [r.sum(axis=0) for r in refs], refs
+
+
+def phase_long(model) -> tuple[dict, dict]:
+    """c1 serving of phase 3's utterances mixed with long mixtures, twice,
+    through StreamingSeparator (bucket 64000, so the long ones take
+    separate_long in chunks of 64000); returns (results, launches)."""
+    from amss_tpu_torch.infer.long import _group_widths, chunk_layout, separate_long
+    from amss_tpu_torch.infer.streaming import BucketSpec, StreamingSeparator
+    from amss_tpu_torch.ops.kernels.framed_matmul import framed_matmul
+    from amss_tpu_torch.ops.kernels.ola import decode_ola
+    from amss_tpu_torch.ops.metrics import sdr_improvement
+
+    t = SECONDS * SAMPLE_RATE
+    t0 = time.perf_counter()
+    mixes, refs = long_mixtures()
+    say(f"  {len(mixes)} mixtures of {LONG_SECONDS} s: {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(0)
+    shorts = [rng.standard_normal(t).astype(np.float32) * 0.3 for _ in range(N_UTTS)]
+    half = N_UTTS // 2  # the long ones in the middle: results must keep input order
+    waves = shorts[:half] + mixes + shorts[half:]
+    sep = StreamingSeparator(model, sample_rate=SAMPLE_RATE, buckets=BucketSpec(lengths=(t,)))
+    wrappers = {"framed_matmul": framed_matmul, "decode_ola": decode_ola}
+    chunks = [len(chunk_layout(len(m), t)[1]) for m in mixes]
+    calls = N_UTTS // BATCH + sum(len(_group_widths(n)) for n in chunks)
+    warm = 1 + 2  # one bucket shape; warm_long's two group widths
+
+    for w in wrappers.values():
+        w.launches = 0
+    sep.separate_all(waves, max_batch=BATCH)
+    after1 = {n: w.launches for n, w in wrappers.items()}
+    sep.meter.compute_seconds = sep.meter.audio_seconds = 0.0
+    sep.meter.utterances = sep.meter.calls = 0
+    est = sep.separate_all(waves, max_batch=BATCH)
+    launches = {n: w.launches for n, w in wrappers.items()}
+    for n in wrappers:
+        if after1[n] != calls + warm or launches[n] - after1[n] != calls:
+            raise AssertionError(
+                f"{n}: launches {after1[n]} after pass 1 (want {calls} + {warm} warm-up) and "
+                f"{launches[n] - after1[n]} in pass 2 (want {calls})")
+    if [e.shape for e in est] != [(2, len(w)) for w in waves]:
+        raise AssertionError("long-form serving returned the wrong shapes")
+    if not all(np.isfinite(e).all() for e in est):
+        raise AssertionError("long-form serving returned non-finite samples")
+    m = sep.meter
+    imp = np.array([float(sdr_improvement(torch.from_numpy(e[None]).double(),
+                                          torch.from_numpy(r[None]).double(),
+                                          torch.from_numpy(x[None]).double())[0])
+                    for e, r, x in zip(est[half : half + len(mixes)], refs, mixes)])
+    boot = np.random.default_rng(0).choice(imp, size=(10000, imp.size)).mean(axis=1)
+    lo, hi = np.percentile(boot, [2.5, 97.5])
+
+    # an utterance no longer than one chunk is one separate call
+    one = separate_long(model, shorts[0], chunk=t)
+    dev = next(model.parameters()).device
+    want = model.separate(torch.from_numpy(shorts[0][None]).to(dev))[0].cpu().numpy()
+    if not np.array_equal(one, want):
+        raise AssertionError(f"separate_long of one chunk differs from separate by "
+                             f"{np.abs(one - want).max()}")
+    say("  separate_long of an 8 s utterance equals separate on it")
+    out = dict(n_long=len(mixes), long_seconds=list(LONG_SECONDS), chunks=chunks,
+               n_short=N_UTTS, rtf_pass2=m.rtf, utterances_per_s=m.utterances_per_sec,
+               audio_s_pass2=m.audio_seconds, compute_s_pass2=m.compute_seconds,
+               calls_pass2=m.calls, warmup_s=m.warmup_seconds, si_sdri_db=float(imp.mean()),
+               ci95=[float(lo), float(hi)], n=int(imp.size), per_mixture=imp.tolist())
+    return out, launches
+
+
+def _fit_counted(tr, state: dict) -> tuple[dict, dict, float, int]:
+    """``tr.fit(state)`` with the kernels' counts set to 0 just before it:
+    (final state, launches, wall seconds, peak device bytes)."""
+    from amss_tpu_torch.ops.kernels.framed_matmul import framed_matmul
+    from amss_tpu_torch.ops.kernels.ola import decode_ola
+
+    wrappers = {"framed_matmul": framed_matmul, "decode_ola": decode_ola}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    final = tr.fit(state, log_every=TRAIN_LOG_EVERY)
+    torch.cuda.synchronize()
+    return (final, {n: w.launches for n, w in wrappers.items()}, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated())
+
+
+def _valid_losses(run_dir: str) -> list:
+    return [m["valid/loss"] for m in
+            (json.loads(line) for line in open(os.path.join(run_dir, "metrics.jsonl")))
+            if "valid/loss" in m]
+
+
+def phase_train_c2(store, workdir: str) -> tuple[dict, dict]:
+    """c2_pretrain, then c2 fine-tuned from its run dir, at full width through
+    Trainer.fit; returns (results, launches by path)."""
+    from amss_tpu_torch.ckpt.checkpoint import restore_checkpoint
+    from amss_tpu_torch.configs.recipes import c2_adapt_dpcl, c2_pretrain_adapt
+    from amss_tpu_torch.train.engine import Trainer
+
+    out, launches = {}, {}
+    # -- c2_pretrain: 8 x 2 sources autoencode as 16 waves of 16384 ---------
+    say("c2_pretrain (the filterbank autoencoder)")
+    recipe = c2_pretrain_adapt(steps=C2_PRETRAIN_STEPS, valid_every=C2_VALID_EVERY)
+    t = recipe.train
+    pre = Trainer(recipe, store, workdir=os.path.join(workdir, "runs"))
+    state0 = pre.init_state()
+    batch0 = pre.mixer.batch("train", 0, t.batch_size)
+    step_check = first_step_matches_cpu(pre, state0, batch0)
+    per_step = check_train_step_needs_no_host_sync(pre, batch0)
+    # B1 encodes, B2 decodes, and B2's backward runs B1 for the codes'
+    # gradient; B1's own backward needs no dx (the waves are data)
+    if per_step != {"framed_matmul": 2, "decode_ola": 1}:
+        raise AssertionError(f"a c2_pretrain step launched {per_step}")
+    pre.load_state(state0)
+    valid0 = pre.valid_loss()
+    final, got, fit_s, peak = _fit_counted(pre, state0)
+    n_valid = -(-t.steps // t.valid_every)
+    # per valid batch B1 + B2; per validation's image one B1 (no separate)
+    want = {"framed_matmul": 2 * t.steps + (t.valid_steps + 1) * n_valid,
+            "decode_ola": t.steps + t.valid_steps * n_valid}
+    if got != want:
+        raise AssertionError(f"c2_pretrain launches {got}, want {want}")
+    valid = _valid_losses(pre.dir)
+    if len(valid) != n_valid or not valid[-1] < valid0:
+        raise AssertionError(f"AE valid loss {valid0} at init, {valid} after training")
+    check_checkpoint_reloads(pre, final, t.steps)
+    ms = window_ms_per_step(pre.dir, skip={TRAIN_LOG_EVERY})
+    launches["c2_pretrain"] = got
+    out["c2_pretrain"] = dict(steps=t.steps, waves=2 * t.batch_size, chunk=t.chunk_samples,
+                              fit_s=fit_s, ms_per_step=ms, steps_per_s=1e3 / ms,
+                              peak_bytes=peak, valid_loss_init=valid0, valid_loss=valid,
+                              launches_per_step=per_step, **step_check)
+
+    # -- c2: the front restored from the pretraining run, frozen, then free ---
+    say("c2 (adaptive front + deep clustering, fine-tuned from the c2_pretrain run)")
+
+    def c2(steps):
+        r = c2_adapt_dpcl(pretrained_front=pre.dir, steps=steps, valid_every=C2_VALID_EVERY)
+        return dataclasses.replace(r, freeze_front_steps=C2_FREEZE_STEPS)
+
+    run_dir = os.path.join(workdir, "runs", "c2_finetune")
+    tr = Trainer(c2(C2_FREEZE_STEPS), store, run_dir=run_dir)
+    state0 = tr.init_state()
+    restored = {n: v.clone() for n, v in state0["params"].items() if n.startswith("front.")}
+    pre_best = restore_checkpoint(pre.dir, best=True)[0]["params"]["front"]
+    for n, v in restored.items():
+        if not np.array_equal(v.cpu().numpy(), pre_best[n[len("front."):]]):
+            raise AssertionError(f"{n} is not the c2_pretrain run's best")
+    t = tr.recipe.train
+    batch0 = tr.mixer.batch("train", 0, t.batch_size)
+    step_check = first_step_matches_cpu(tr, state0, batch0)
+    per_step = check_train_step_needs_no_host_sync(tr, batch0)
+    # B1: mixture, sources, and B2's backward (the recon term's codes); B2:
+    # the reconstruction of the mixture
+    if per_step != {"framed_matmul": 3, "decode_ola": 1}:
+        raise AssertionError(f"a c2 step launched {per_step}")
+    tr.load_state(state0)
+    valid0 = tr.valid_loss()
+    frozen, got1, fit1_s, peak1 = _fit_counted(tr, state0)
+    for n, v in restored.items():
+        if not torch.equal(frozen["params"][n], v):
+            raise AssertionError(f"{n} moved in the {C2_FREEZE_STEPS} frozen steps")
+        if frozen["opt_state"]["mu"][n].any() or frozen["opt_state"]["nu"][n].any():
+            raise AssertionError(f"Adam's moments of {n} moved in the frozen steps")
+    say(f"  the front (enc, dec, smooth) is bit for bit the restored one after "
+        f"{C2_FREEZE_STEPS} frozen steps")
+    tr = Trainer(c2(C2_STEPS), store, run_dir=run_dir)
+    final, got2, fit2_s, peak2 = _fit_counted(tr, frozen)
+    moved = {n: float((final["params"][n] - v).abs().max()) for n, v in restored.items()}
+    if not all(m > 0 for m in moved.values()):
+        raise AssertionError(f"the front did not move after the freeze: {moved}")
+    say(f"  after the freeze the front moved by up to {moved}")
+    got = {n: got1[n] + got2[n] for n in got1}
+    n_valid = -(-C2_STEPS // t.valid_every)
+    # per valid batch two B1 and one B2; per validation's images three B1
+    # (mixture, separate, its first speaker) and one B2 (separate)
+    want = {"framed_matmul": 3 * C2_STEPS + (2 * t.valid_steps + 3) * n_valid,
+            "decode_ola": C2_STEPS + (t.valid_steps + 1) * n_valid}
+    if got != want:
+        raise AssertionError(f"c2 launches {got}, want {want}")
+    valid = _valid_losses(run_dir)
+    if len(valid) != n_valid or not valid[-1] < valid0:
+        raise AssertionError(f"c2 valid loss {valid0} at init, {valid} after training")
+    check_checkpoint_reloads(tr, final, C2_STEPS)
+    ms = window_ms_per_step(run_dir, skip={TRAIN_LOG_EVERY, C2_FREEZE_STEPS + TRAIN_LOG_EVERY})
+    launches["c2_train"] = got
+    out["c2"] = dict(steps=C2_STEPS, freeze_steps=C2_FREEZE_STEPS, batch=t.batch_size,
+                     chunk=t.chunk_samples, fit_s=fit1_s + fit2_s, ms_per_step=ms,
+                     steps_per_s=1e3 / ms, peak_bytes=max(peak1, peak2), valid_loss_init=valid0,
+                     valid_loss=valid, front_moved_after_freeze=moved,
+                     launches_per_step=per_step, **step_check)
     return out, launches
 
 
@@ -698,20 +1076,74 @@ def main() -> None:
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="amss_train_") as workdir:
-        train, train_launches = phase_train(workdir)
-    say(f"training (c1 2x300 E=20, batch {train['batch']} x {train['chunk']}, "
-        f"{train['steps']} steps) on {card}: {train['ms_per_step']:.3f} ms/step median "
-        f"after warm-up, {train['steps_per_s']:.2f} steps/s, peak memory "
-        f"{train['peak_bytes'] / 2**30:.3f} GiB, valid loss {train['valid_loss_init']:.4f} -> "
-        f"{train['valid_loss'][-1]:.4f}, B1 {train['b1_ms_per_step']:.4f} ms/step "
-        f"({100 * train['b1_share']:.2f}%), launches {train_launches}")
-    say(f"phase 5 training: {time.perf_counter() - t0:.2f} s")
+        store = training_corpus(workdir)
+        train, train_launches = phase_train(store, workdir)
+        say(f"training (c1 2x300 E=20, batch {train['batch']} x {train['chunk']}, "
+            f"{train['steps']} steps) on {card}: {train['ms_per_step']:.3f} ms/step median "
+            f"after warm-up, {train['steps_per_s']:.2f} steps/s, peak memory "
+            f"{train['peak_bytes'] / 2**30:.3f} GiB, valid loss {train['valid_loss_init']:.4f} "
+            f"-> {train['valid_loss'][-1]:.4f}, B1 {train['b1_ms_per_step']:.4f} ms/step "
+            f"({100 * train['b1_share']:.2f}%), launches {train_launches}")
+        say(f"phase 5 training: {time.perf_counter() - t0:.2f} s")
 
+        t0 = time.perf_counter()
+        kern_c2 = phase_kernels_c2(gen)
+        for name, k in kern_c2.items():
+            if any(c["launched"] != 1 for c in k["grad_checks"]):
+                raise AssertionError(f"{name}: its backward launched the other kernel "
+                                     f"{[c['launched'] for c in k['grad_checks']]} times")
+            say(f"  {name} at c2 serving ({k['shape']}): {k['ms']:.4f} ms, bound "
+                f"{k['bound_ms'] * 1e3:.3f} us ({k['bound_by']}), plain {k['plain_ms']:.4f} ms, "
+                f"library {k['library_ms']:.4f} ms")
+        say(f"phase 6 c2 kernels: {time.perf_counter() - t0:.2f} s")
+
+        t0 = time.perf_counter()
+        model_c2 = load_model_from_run(C2_CKPT)
+        speed_c2, launches_c2 = phase_speed(model_c2)
+        say(f"c2 serving (64 x 8 s, batch 8) on {card}: rtf {speed_c2['rtf_pass2']:.6f} "
+            f"(pass 1 {speed_c2['rtf_pass1']:.6f}), {speed_c2['utterances_per_s']:.2f} "
+            f"utterances/s, warm-up {speed_c2['warmup_s']:.2f} s, launches {launches_c2}")
+        quality_c2 = phase_quality(model_c2)
+        say(f"c2 quality (64 two-speaker mixtures of {QUALITY_T} samples) on {card}: si_sdri "
+            f"{quality_c2['si_sdri_db']:.3f} dB, 95% CI {quality_c2['ci95']}")
+        if not quality_c2["si_sdri_db"] >= C2_QUALITY_MIN_DB:
+            raise AssertionError(f"c2 SI-SDRi {quality_c2['si_sdri_db']:.3f} dB < "
+                                 f"{C2_QUALITY_MIN_DB} dB")
+        del model_c2
+        say(f"phase 7 c2 serving: {time.perf_counter() - t0:.2f} s")
+
+        t0 = time.perf_counter()
+        train_c2, train_c2_launches = phase_train_c2(store, workdir)
+        for key, what in (("c2_pretrain", "c2_pretrain, 16 waves"), ("c2", "c2 2x300 E=20, 8")):
+            r = train_c2[key]
+            say(f"training ({what} x {r['chunk']}, {r['steps']} steps) on {card}: "
+                f"{r['ms_per_step']:.3f} ms/step median after warm-up, {r['steps_per_s']:.2f} "
+                f"steps/s, peak memory {r['peak_bytes'] / 2**30:.3f} GiB, valid loss "
+                f"{r['valid_loss_init']:.4f} -> {r['valid_loss'][-1]:.4f}, launches per step "
+                f"{r['launches_per_step']}")
+        say(f"phase 8 c2 training: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    long_form, long_launches = phase_long(model)
+    say(f"long-form (c1, {N_UTTS} x 8 s + {long_form['n_long']} mixtures of "
+        f"{LONG_SECONDS} s, chunks of 64000) on {card}: rtf {long_form['rtf_pass2']:.6f} on "
+        f"pass 2, {long_form['utterances_per_s']:.2f} utterances/s, si_sdri of the long "
+        f"mixtures {long_form['si_sdri_db']:.3f} dB, 95% CI {long_form['ci95']}, launches "
+        f"{long_launches}")
+    if not long_form["si_sdri_db"] >= LONG_QUALITY_MIN_DB:
+        raise AssertionError(f"long-form SI-SDRi {long_form['si_sdri_db']:.3f} dB < "
+                             f"{LONG_QUALITY_MIN_DB} dB")
+    say(f"phase 9 long-form: {time.perf_counter() - t0:.2f} s")
+
+    per_path = {"c1_serve": launches, "c1_train": train_launches, "c2_serve": launches_c2,
+                **train_c2_launches, "long_form": long_launches}
     record = []
     other = {"framed_matmul": "decode_ola", "decode_ola": "framed_matmul"}
     for name, (source, replaces, design) in KERNELS.items():
         k = kern[name]
         worst, grad_tol = max(grads["checks"][name], key=lambda c: c[0]["grad_rel_err"])
+        k2 = kern_c2[name]
+        worst2 = max(k2["grad_checks"], key=lambda c: c["grad_rel_err"])
         record.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": k["max_abs_err"], "tol": k["tol"],
@@ -721,12 +1153,20 @@ def main() -> None:
             "bound_fp32_ms": k["bound_fp32_ms"], "bound_fp32_by": k["bound_fp32_by"],
             "design": design, **compiled[name],
             "train_launches": train_launches[name],
+            "launches_per_path": {p: n[name] for p, n in per_path.items()},
             "backward_route": f"cuda: {other[name]} kernel + plain dbasis product",
             "backward_launches": sum(c["launched"] for c, _ in grads["checks"][name]),
             "grad_max_abs_err": worst["grad_max_abs_err"], "grad_scale": worst["grad_scale"],
             "grad_tol": grad_tol, **grads["times"][name],
+            "c2": {"shape": k2["shape"], "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+                   "library_ms": k2["library_ms"], "bound_ms": k2["bound_ms"],
+                   "bound_by": k2["bound_by"], "roofline_share": k2["bound_ms"] / k2["ms"],
+                   "max_abs_err": k2["max_abs_err"], "tol": k2["tol"],
+                   "grad_rel_err": worst2["grad_rel_err"], "grad_tol": GRAD_TOL},
         })
-    say(json.dumps({"main_path": speed, "quality": quality, "training": train, "card": card,
+    say(json.dumps({"main_path": speed, "quality": quality, "training": train,
+                    "c2_serving": speed_c2, "c2_quality": quality_c2, "c2_training": train_c2,
+                    "long_form": long_form, "card": card,
                     "total_s": time.perf_counter() - t_start}))
     say(card)
     say(json.dumps({"kernels": record}))

@@ -122,8 +122,9 @@ def test_streaming_separator_buckets_pad_and_keep_input_order(models):
     m = sep.meter
     assert m.utterances == 4 and m.calls == 2
     assert m.audio_seconds == pytest.approx(sum(lengths) / 8000)
-    with pytest.raises(NotImplementedError, match="long-form"):
-        sep.separate_all([np.zeros(T + 1, np.float32)])
+    # over the largest bucket: the long-form path, the whole length kept
+    (long_est,) = sep.separate_all([np.zeros(T + 1, np.float32)])
+    assert long_est.shape == (2, T + 1) and m.utterances == 5 and m.calls == 3
 
 
 def test_params_from_a_jax_initialised_tree(rng):

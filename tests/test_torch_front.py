@@ -106,6 +106,10 @@ def test_vad_weights_match_jax(rng):
 
 
 def test_make_front_covers_stft_only():
+    # slice 3 added the adaptive front; any other kind raises
+    from amss_tpu_torch.models.adapt import AdaptFrontEnd
+
     assert isinstance(make_front(FrontConfig()), STFTFrontEnd)
-    with pytest.raises(NotImplementedError, match="adapt"):
-        make_front(FrontConfig(kind="adapt"))
+    assert isinstance(make_front(FrontConfig(kind="adapt")), AdaptFrontEnd)
+    with pytest.raises(ValueError, match="unknown front kind"):
+        make_front(FrontConfig(kind="tasnet"))
