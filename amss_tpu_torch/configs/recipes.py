@@ -1,7 +1,9 @@
 """Recipes of the ported paths, copies of ``amss_tpu/configs/recipes.py``:
-STFT 256/64 or the adaptive front (256 filters of 256 taps, stride 64, pool
-2), a 2×300 BLSTM with E = 20, two speakers, batch 8 of 16384 samples.
-Keyword overrides go to ``TrainConfig``."""
+c1, c5, c2_pretrain and c2 (STFT 256/64 or the adaptive front of 256 filters
+of 256 taps, stride 64, pool 2; a 2×300 BLSTM with E = 20), and c6 (TasNet:
+the adaptive front of 256 filters of 32 taps, stride 16, pool 1; a TCN of 3
+repeats of 8 blocks, bottleneck 128, expansion 2).  Two speakers, batch 8 of
+16384 samples.  Keyword overrides go to ``TrainConfig``."""
 
 from __future__ import annotations
 
@@ -57,4 +59,21 @@ def c5_streaming(**over) -> RecipeConfig:
         name="c5_streaming",
         model=ModelConfig(kind="dpcl", front=_STFT, sep=_SEP, nb_speakers=2),
         train=TrainConfig(**{"batch_size": 8, "chunk_samples": 16384, **over}),
+    )
+
+
+def c6_tasnet(**over) -> RecipeConfig:
+    """Config 6: TasNet, a short-filter adaptive front, the TCN trunk and
+    sigmoid masks, trained end to end on waveform PIT SI-SDR."""
+    return RecipeConfig(
+        name="c6_tasnet",
+        model=ModelConfig(
+            kind="tasnet",
+            front=FrontConfig(kind="adapt", n_filters=256, filter_len=32, stride=16, pool=1),
+            sep=SeparatorConfig(hidden=128, layers=2, embed_dim=20, trunk="tcn", blocks=8,
+                                repeats=3, chunk_frames=32, dropout=0.0),
+            nb_speakers=2,
+        ),
+        train=TrainConfig(**{"batch_size": 8, "chunk_samples": 16384, "lr": 1e-3,
+                             "lr_schedule": "cosine", **over}),
     )

@@ -1,12 +1,13 @@
 """Separator machinery shared by the heads (``amss_tpu/models/base.py``):
-the front, the normalised BLSTM trunk, the training targets, and mask
-application.
+the front, the normalised trunk, the training targets, and mask application.
 
-The port has the BLSTM trunk with the global (instance) or per-channel
-feature norm in float32; other trunks, norms and compute types raise until
-their slice.  The JAX package's train-time corruptions (noise,
-reverberation, dropped sources) are drawn from a JAX key; here they raise
-until ROADMAP item 20 ports them.
+The port has two trunks: the BLSTM (float32) and the TCN (float32, or bf16
+operands in its dense products, ``compute_dtype="bfloat16"``), each after the
+global (instance) or per-channel feature norm.  Still raising, each naming
+its ROADMAP item: the DPRNN and DPT trunks (item 19), the cumulative norm
+(item 16), and the BLSTM in bfloat16.  The JAX package's train-time
+corruptions (noise, reverberation, dropped sources) are drawn from a JAX
+key; here they raise until ROADMAP item 20 ports them.
 """
 
 from __future__ import annotations
@@ -22,35 +23,66 @@ from amss_tpu_torch.models.front import (
     instance_norm,
     make_front,
 )
+from amss_tpu_torch.models.tcn import TCN, tcn_stack
 from amss_tpu_torch.utils.config import ModelConfig
 
 _EPS = 1e-8
 
 
 class SeparatorBase(nn.Module):
-    """Front + BLSTM trunk; subclasses add heads."""
+    """Front + trunk (``blstm`` or ``tcn``); subclasses add heads."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         sep = cfg.sep
-        if sep.trunk != "blstm":
-            raise NotImplementedError(f"trunk {sep.trunk!r} is not ported yet")
-        if sep.compute_dtype != "float32":
-            raise NotImplementedError(f"compute_dtype {sep.compute_dtype!r} is not ported yet")
+        if sep.trunk in ("dprnn", "dpt"):
+            raise NotImplementedError(
+                f"trunk {sep.trunk!r} is not ported yet: ROADMAP item 19")
+        if sep.trunk not in ("blstm", "tcn"):
+            raise ValueError(f"unknown trunk {sep.trunk!r}")
+        if sep.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown compute_dtype {sep.compute_dtype!r}")
+        if sep.trunk == "blstm" and sep.compute_dtype != "float32":
+            raise NotImplementedError(
+                f"the BLSTM trunk in {sep.compute_dtype} is not ported yet; "
+                "the port runs it in float32")
         if sep.feature_norm == "cumulative":
-            raise NotImplementedError(f"feature_norm {sep.feature_norm!r} is not ported yet")
+            raise NotImplementedError(
+                "feature_norm 'cumulative' is not ported yet: ROADMAP item 16")
         self.cfg = cfg
         self.front = make_front(cfg.front)
-        self.blstm = BLSTM(cfg.front.feature_dim, sep.hidden, sep.layers)
+        if sep.trunk == "tcn":
+            self.tcn = TCN(cfg.front.feature_dim, bottleneck=sep.hidden,
+                           hidden=sep.expansion * sep.hidden, blocks=sep.blocks,
+                           repeats=sep.repeats, kernel=sep.kernel)
+        else:
+            self.blstm = BLSTM(cfg.front.feature_dim, sep.hidden, sep.layers)
 
     @property
     def trunk_dim(self) -> int:
-        return 2 * self.cfg.sep.hidden
+        """Width of the trunk's output: ``hidden`` for the TCN (its
+        bottleneck), ``2·hidden`` for the BLSTM."""
+        return self.cfg.sep.hidden if self.cfg.sep.trunk == "tcn" else 2 * self.cfg.sep.hidden
 
-    def trunk(self, feats: torch.Tensor, frame_mask: torch.Tensor | None = None) -> torch.Tensor:
-        """features [B, T', F] -> [B, T', 2H]."""
-        norm = channel_norm if self.cfg.sep.feature_norm == "channel" else instance_norm
-        return self.blstm(norm(feats, frame_mask), frame_mask)
+    def init_trunk(self, generator: torch.Generator) -> None:
+        """Draw the trunk's parameters from the JAX package's distributions."""
+        (self.tcn if self.cfg.sep.trunk == "tcn" else self.blstm).init_parameters(generator)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.cfg.sep.compute_dtype == "bfloat16" else torch.float32
+
+    def trunk(self, feats: torch.Tensor, frame_mask: torch.Tensor | None = None,
+              training: bool = False) -> torch.Tensor:
+        """features [B, T', F] -> [B, T', trunk_dim]."""
+        sep = self.cfg.sep
+        norm = channel_norm if sep.feature_norm == "channel" else instance_norm
+        h = norm(feats, frame_mask)
+        if sep.trunk == "tcn":
+            return tcn_stack(self.tcn, h, mask=frame_mask, blocks_per_repeat=sep.blocks,
+                             compute_dtype=self.compute_dtype, remat=sep.remat,
+                             dropout_rate=sep.dropout, training=training, causal=sep.causal)
+        return self.blstm(h, frame_mask)
 
     def _check_no_corruption(self) -> None:
         c = self.cfg

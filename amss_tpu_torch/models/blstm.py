@@ -12,11 +12,17 @@ ways to run them:
   mask, which is all the serving path builds, it computes the same thing; it
   runs on CUDA, in FP32 (TF32 off), and trains (cuDNN's backward needs the
   module in training mode).
+
+``dense`` is the JAX package's ``dense`` (``blstm.py:43-46``) over an
+``nn.Linear`` holding ``weight = wᵀ``, in float32 or bfloat16.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
@@ -33,6 +39,22 @@ class BLSTM(nn.Module):
         for name, p in self.lstm.named_parameters():
             if name.startswith("bias_hh"):
                 p.requires_grad_(False)
+
+    @torch.no_grad()
+    def init_parameters(self, generator: torch.Generator) -> None:
+        """``init_blstm_stack``'s distributions: wx and wh uniform in
+        ±1/√hidden, the bias 0 with the forget gate at 1.0; ``bias_hh`` stays
+        0 (the JAX cell has one bias)."""
+        hd = self.hidden
+        for name, p in self.lstm.named_parameters():
+            if name.startswith("weight_"):
+                p.copy_(torch.empty(p.shape).uniform_(-1.0 / math.sqrt(hd), 1.0 / math.sqrt(hd),
+                                                      generator=generator))
+            elif name.startswith("bias_ih"):
+                p.zero_()
+                p[hd : 2 * hd] = 1.0
+            else:
+                p.zero_()
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         """x ``[B, T, In]``, mask ``[B, T]`` (1 = valid) -> ``[B, T, 2H]``."""
@@ -107,3 +129,72 @@ class BLSTM(nn.Module):
             out = self.lstm(packed)[0]
         out, _ = pad_packed_sequence(out, batch_first=True, total_length=x.shape[1])
         return out * mask[..., None]  # rows with no valid frame output 0
+
+
+# How the card multiplies two bf16 operands into a float32 result: cuBLAS's
+# bf16 product with a float32 output where this torch has ``aten::mm.dtype``,
+# else the float32 product of the bf16-rounded operands (TF32 off).  The CPU
+# always takes the second: its products are exact in float32 either way.
+BF16_PRODUCT = ("cublas_bf16_out_float32" if hasattr(torch.ops.aten.mm, "dtype")
+                else "float32_of_bf16_operands")
+
+
+def _bf16_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of two 2-D bf16 tensors, summed and returned in float32."""
+    if a.device.type == "cuda" and BF16_PRODUCT == "cublas_bf16_out_float32":
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _Bf16Dense(torch.autograd.Function):
+    """``x @ wᵀ + b`` with x and w rounded to bf16, the products summed in
+    float32 and the bias added in float32.  The backward is JAX's transpose
+    of that product: each operand's gradient is the float32 product of the
+    float32 cotangent with the other bf16 operand, rounded to bf16 (the
+    gradient of the cast), and the bias's is the cotangent's sum."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        xb = x.reshape(-1, x.shape[-1]).to(torch.bfloat16)
+        wb = weight.to(torch.bfloat16)
+        ctx.save_for_backward(xb, wb)
+        ctx.lead = x.shape[:-1]
+        return _bf16_mm(xb, wb.T).reshape(*x.shape[:-1], -1) + bias
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = (g2 @ wb.float()).to(torch.bfloat16).float().reshape(*ctx.lead, -1)
+        if ctx.needs_input_grad[1]:
+            dw = (g2.T @ xb.float()).to(torch.bfloat16).float()
+        if ctx.needs_input_grad[2]:
+            db = g2.sum(dim=0)
+        return dx, dw, db
+
+
+@torch.no_grad()
+def init_dense(layer: nn.Linear, generator: torch.Generator) -> None:
+    """``_init_dense``'s distribution: w ``[in, out]`` uniform in ±1/√in
+    (drawn in that layout from ``generator``), bias 0."""
+    n_in = layer.in_features
+    w = torch.empty(n_in, layer.out_features).uniform_(
+        -1.0 / math.sqrt(n_in), 1.0 / math.sqrt(n_in), generator=generator)
+    layer.weight.copy_(w.T)
+    layer.bias.zero_()
+
+
+def dense(layer: nn.Linear, x: torch.Tensor, compute_dtype: torch.dtype = torch.float32):
+    """``x @ w + b`` of the JAX package's ``dense`` (``layer.weight = wᵀ``).
+
+    In bfloat16 the JAX package casts x and w to bf16, multiplies with a
+    float32 result and adds the float32 bias.  ``x.bfloat16() @
+    w.bfloat16()`` would round the product to bf16 as well; ``_Bf16Dense``
+    does not."""
+    if compute_dtype == torch.float32:
+        return F.linear(x, layer.weight, layer.bias)
+    if compute_dtype != torch.bfloat16:
+        raise ValueError(f"compute dtype {compute_dtype} is neither float32 nor bfloat16")
+    return _Bf16Dense.apply(x, layer.weight, layer.bias)

@@ -6,12 +6,11 @@ activity, distance-softmax masks and resynthesis, all on the device."""
 
 from __future__ import annotations
 
-import math
-
 import torch
 from torch import nn
 
 from amss_tpu_torch.models.base import _EPS, SeparatorBase
+from amss_tpu_torch.models.blstm import init_dense
 from amss_tpu_torch.models.front import _one_hot_last, vad_weights
 from amss_tpu_torch.ops.kmeans import kmeans, soft_assignments
 from amss_tpu_torch.utils.config import ModelConfig
@@ -52,22 +51,8 @@ class DPCLModel(SeparatorBase):
         init (``AdaptFrontEnd.init_parameters``).  ``generator`` is a CPU
         generator, so a seed gives the same weights on any device; it cannot
         replay ``jax.random``."""
-        hidden = self.cfg.sep.hidden
-
-        def uniform(shape, scale):
-            return torch.empty(shape).uniform_(-scale, scale, generator=generator)
-
-        for name, p in self.blstm.lstm.named_parameters():
-            if name.startswith("weight_"):
-                p.copy_(uniform(p.shape, 1.0 / math.sqrt(hidden)))
-            elif name.startswith("bias_ih"):
-                p.zero_()
-                p[hidden : 2 * hidden] = 1.0
-            else:  # bias_hh: the JAX cell has one bias; this one stays 0
-                p.zero_()
-        n_in = self.proj.in_features
-        self.proj.weight.copy_(uniform((n_in, self.proj.out_features), 1.0 / math.sqrt(n_in)).T)
-        self.proj.bias.zero_()
+        self.init_trunk(generator)
+        init_dense(self.proj, generator)
         if hasattr(self.front, "init_parameters"):  # a learned front, drawn last
             self.front.init_parameters(generator)
 

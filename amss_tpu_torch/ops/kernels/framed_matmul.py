@@ -34,8 +34,20 @@ def framed_matmul_ref(x: torch.Tensor, basis: torch.Tensor, hop: int) -> torch.T
 
 
 def profitable(win: int, hop: int) -> bool:
-    """The JAX package's shape gate (``pallas_profitable``): the fused kernel
-    serves STFT-like shapes; short filters take framing + matmul."""
+    """The shape gate of the adjoint pair: True where B1 and B2 both beat
+    their plain versions on the H100, so both wrappers (and each one's
+    backward) launch their kernels; elsewhere both take the plain products.
+
+    Measured by ``chip_smoke.py`` (phases 2, 6 and 10) on an H100 80GB HBM3 at
+    700 W: at 256/64 (c1's STFT, c2's front) both kernels win.  At 16/8
+    (c6_flagship) and 32/16 (c6_3spk and the c6 recipe) B1 wins (0.0344-0.0346
+    ms against 0.0390-0.0391, and 0.0234-0.0237 against 0.0332-0.0340), but
+    B2 loses 2.3-2.8x (0.2268-0.2287 ms against 0.0820-0.0830, and
+    0.1708-0.1728 against 0.0751-0.0759): its tile is 64 samples of the hop
+    wide, so at hop 8 or 16 it does 8x or 4x the tensor-core work the output
+    needs (ROADMAP B.f).  So the pair stays closed there.  Shapes not
+    measured keep the JAX package's rule (``pallas_profitable``), which every
+    measured point agrees with."""
     return win // hop >= 4 and hop >= 64
 
 
@@ -108,8 +120,8 @@ def framed_matmul(
     both inputs.
 
     x ``[B, T]`` and basis ``[win, K]``, float32, on one device.  Shapes the
-    JAX package sends to XLA (``profitable`` false) take the plain version
-    unless ``force`` is set; a forced call's backward is forced too.
+    gate closes (``profitable`` false) take the plain version unless ``force``
+    is set; a forced call's backward is forced too.
 
     The backward's ``dx`` on CUDA is B2, which fills few of the card's SMs at
     small batches: at the c1 training shape ``[8, 16384]`` it is slower than

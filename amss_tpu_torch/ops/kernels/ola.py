@@ -104,9 +104,9 @@ def decode_ola(
 ) -> torch.Tensor:
     """``overlap_add(codes @ basis, hop)`` -> ``[B, length]``, frames never in
     device memory, differentiable in both inputs.  ``length`` (default
-    ``(NF-1)*hop + win``) trims or zero-pads.  Shapes the JAX package sends to
-    XLA (``profitable`` false) take the plain version unless ``force`` is set;
-    a forced call's backward is forced too."""
+    ``(NF-1)*hop + win``) trims or zero-pads.  Shapes the gate closes
+    (``framed_matmul.profitable`` false) take the plain version unless
+    ``force`` is set; a forced call's backward is forced too."""
     if not force and not profitable(basis.shape[1], hop):
         return decode_ola_ref(codes, basis, hop, length)
     _check(codes, basis, hop)

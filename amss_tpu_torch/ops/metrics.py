@@ -27,9 +27,11 @@ def pit_si_sdr(est: torch.Tensor, ref: torch.Tensor) -> tuple[torch.Tensor, torc
     """Permutation-invariant SI-SDR over ``[..., S, T]``: (best mean-over-sources
     score ``[...]``, index of the best of ``itertools.permutations(range(S))``)."""
     perms = list(itertools.permutations(range(est.shape[-2])))
+    # each permutation by slices: a list index would copy it to the device
+    # and wait for the copy
     scores = torch.stack(
-        [si_sdr(est[..., list(p), :], ref).mean(dim=-1) for p in perms], dim=-1
-    )
+        [si_sdr(torch.stack([est[..., i, :] for i in p], dim=-2), ref).mean(dim=-1)
+         for p in perms], dim=-1)
     best = torch.argmax(scores, dim=-1)
     return scores.max(dim=-1).values, best
 

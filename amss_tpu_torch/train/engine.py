@@ -1,16 +1,17 @@
 """The training engine (``amss_tpu/train/engine.py``): one fit loop for a
 recipe, with periodic validation, checkpoints and best-checkpoint retention.
 
-A step mixes on the device, runs the front (kernel B1 on a card; the
-adaptive front also B2 and, in its backward, B1 again), the BLSTM, the head
-and the loss, then clips by the global norm and takes an Adam step, all
-without waiting for the device on the host.  The recipes ported are c1, c5,
-c2_pretrain (the filterbank autoencoder) and c2, which restores a pretrained
-front and keeps it frozen for ``freeze_front_steps``: its gradients are
-scaled by 0 before the clip, so Adam's moments and update stay 0 and the
-front's tensors stay bit for bit what was restored.  The host draws batches
-on a background thread (``data/prefetch.py``) and ships the sources as
-int16.
+A step mixes on the device, runs the front (kernel B1 on a card where the
+shape gate opens; the adaptive front also B2 and, in its backward, B1
+again), the trunk, the head and the loss, then clips by the global norm and
+takes an Adam step, all without waiting for the device on the host.  The
+recipes ported are c1, c5, c2_pretrain (the filterbank autoencoder), c2,
+which restores a pretrained front and keeps it frozen for
+``freeze_front_steps`` (its gradients are scaled by 0 before the clip, so
+Adam's moments and update stay 0 and the front's tensors stay bit for bit
+what was restored), and c6 (TasNet, whose loss encodes the mixture alone
+and scores the separated waveforms).  The host draws batches on a
+background thread (``data/prefetch.py``) and ships the sources as int16.
 
 A run dir is named ``<recipe>_<run id>`` with the JAX package's run id, and
 holds the same files: ``config.json``, ``corpus.json``, ``metrics.jsonl`` and
@@ -41,6 +42,7 @@ from amss_tpu_torch.data.mixer import Mixer
 from amss_tpu_torch.data.prefetch import Prefetcher
 from amss_tpu_torch.models.adapt import AdaptAutoencoder
 from amss_tpu_torch.models.dpcl import DPCLModel
+from amss_tpu_torch.models.tasnet import TasNetModel
 from amss_tpu_torch.train.optim import Adam, AdamState, make_schedule
 from amss_tpu_torch.utils.config import ModelConfig, RecipeConfig, recipe_to_dict, run_id
 from amss_tpu_torch.utils.device import resolve_device
@@ -49,14 +51,13 @@ from amss_tpu_torch.weights import jax_tree, named_from_jax
 
 # model kind -> the slice of the port (ROADMAP A) that brings it
 _LATER = {"l41": "item 17 (L41 and Chimera)", "chimera": "item 17 (L41 and Chimera)",
-          "tasnet": "item 15 (TasNet flagship)", "enhance": "item 18 (count and enhance)"}
+          "enhance": "item 18 (count and enhance)"}
+_MODELS = {"dpcl": DPCLModel, "adapt_ae": AdaptAutoencoder, "tasnet": TasNetModel}
 
 
-def make_model(cfg: ModelConfig) -> DPCLModel | AdaptAutoencoder:
-    if cfg.kind == "dpcl":
-        return DPCLModel(cfg)
-    if cfg.kind == "adapt_ae":
-        return AdaptAutoencoder(cfg)
+def make_model(cfg: ModelConfig) -> DPCLModel | AdaptAutoencoder | TasNetModel:
+    if cfg.kind in _MODELS:
+        return _MODELS[cfg.kind](cfg)
     if cfg.kind in _LATER:
         raise NotImplementedError(
             f"model kind {cfg.kind!r} is not ported yet: ROADMAP {_LATER[cfg.kind]}")
@@ -132,7 +133,7 @@ class Trainer:
         params = {n: p.detach() for n, p in model.named_parameters()}
         if self.recipe.pretrained_front:
             tree = restore_subtree(self.recipe.pretrained_front,
-                                   jax_tree(params, self.recipe.model.sep.layers), keys=["front"])
+                                   jax_tree(params), keys=["front"])
             params.update(named_from_jax({"front": tree["front"]}))
         return self._fresh_state({n: v.to(self.device) for n, v in params.items()})
 
@@ -178,17 +179,16 @@ class Trainer:
         """``state`` in the JAX package's checkpoint layout: parameter trees of
         numpy arrays and optax's state ``(clip, (adam, schedule))``, each tuple
         a map keyed by index as flax writes it."""
-        layers = self.recipe.model.sep.layers
         opt = state["opt_state"]
         adam = {"count": np.asarray(opt["count"], np.int32),
-                "mu": jax_tree(opt["mu"], layers), "nu": jax_tree(opt["nu"], layers)}
+                "mu": jax_tree(opt["mu"]), "nu": jax_tree(opt["nu"])}
         sched = ({"count": np.asarray(opt["count"], np.int32)}
                  if self.recipe.train.lr_schedule == "cosine" else {})
-        tree = {"params": jax_tree(state["params"], layers),
+        tree = {"params": jax_tree(state["params"]),
                 "opt_state": {"0": {}, "1": {"0": adam, "1": sched}},
                 "step": int(state["step"])}
         if "ema_params" in state:
-            tree["ema_params"] = jax_tree(state["ema_params"], layers)
+            tree["ema_params"] = jax_tree(state["ema_params"])
         return tree
 
     def state_from_tree(self, tree: dict) -> dict:

@@ -1,13 +1,20 @@
 """Carrying parameters between the JAX package's tree and the port's modules,
 in both directions.
 
-The JAX tree is ``{"front": front, "separator": {"blstm": layers, "proj":
-{w, b}}}``, each BLSTM layer ``{"fwd": {wx, wh, b}, "bwd": {...}}``.  The
-front is ``{}`` for the STFT front (its bases are buffers computed from the
-config) and ``{enc, dec, smooth}`` for the adaptive front, in the port's
-layouts; the autoencoder's tree has the front alone.  A checkpoint keys the
-layers "0", "1", ...; the port's names are those of ``named_parameters()``
-(``front.enc``, ``blstm.lstm.*``, ``proj.*``)."""
+The JAX tree is ``{"front": front, "separator": separator}``.  The front is
+``{}`` for the STFT front (its bases are buffers computed from the config)
+and ``{enc, dec, smooth}`` for the adaptive front, in the port's layouts;
+the autoencoder's tree has the front alone.  The separator is
+
+* deep clustering: ``{"blstm": layers, "proj": {w, b}}``, each BLSTM layer
+  ``{"fwd": {wx, wh, b}, "bwd": {...}}``, in one ``nn.LSTM``;
+* TasNet: ``{"tcn": {in_proj, blocks, out_alpha}, "proj_mask": {w, b}}``,
+  each block ``{pw_in, a1, ln1: {g, b}, dw, a2, ln2, pw_res, pw_skip}``,
+  under the same names in the port (``tcn.blocks.<i>.ln1.g``).
+
+A dense ``{w [in, out], b}`` is an ``nn.Linear`` with ``weight = wᵀ``.  A
+checkpoint keys a list's entries "0", "1", ...; the port's names are those
+of ``named_parameters()``."""
 
 from __future__ import annotations
 
@@ -19,8 +26,11 @@ import torch
 
 from amss_tpu_torch.ckpt.checkpoint import load_params
 from amss_tpu_torch.models.dpcl import DPCLModel
+from amss_tpu_torch.models.tasnet import TasNetModel
 from amss_tpu_torch.utils.config import ModelConfig, recipe_from_dict
 from amss_tpu_torch.utils.device import resolve_device
+
+_MODELS = {"dpcl": DPCLModel, "tasnet": TasNetModel}
 
 
 def _t(a) -> torch.Tensor:
@@ -44,15 +54,37 @@ def lstm_state(layers) -> dict:
     return state
 
 
+def _flatten(tree, prefix: str) -> dict:
+    """Named tensors of a JAX subtree: a dense ``{w, b}`` becomes ``weight =
+    wᵀ`` and ``bias``, a list's entries are named by their index, every other
+    key keeps its name."""
+    if isinstance(tree, (list, tuple)):
+        tree = {str(i): v for i, v in enumerate(tree)}
+    if not isinstance(tree, dict):
+        return {prefix[:-1]: _t(tree)}
+    if set(tree) == {"w", "b"}:
+        return {prefix + "weight": _t(tree["w"]).T, prefix + "bias": _t(tree["b"])}
+    out = {}
+    for k, v in tree.items():
+        out.update(_flatten(v, f"{prefix}{k}."))
+    return out
+
+
 def named_from_jax(tree: dict) -> dict:
-    """The port's named tensors (``front.*``, ``blstm.lstm.*``, ``proj.*``)
-    from a JAX parameter tree, ``bias_hh`` included as zeros."""
+    """The port's named tensors (``front.*``, then ``blstm.lstm.*`` and
+    ``proj.*``, or ``tcn.*`` and ``proj_mask.*``) from a JAX parameter tree,
+    ``bias_hh`` included as zeros."""
     named = {"front." + k: _t(v) for k, v in tree.get("front", {}).items()}
     sep = tree.get("separator")
-    if sep is not None:
+    if sep is None:
+        return named
+    if "blstm" in sep:
         named.update({"blstm.lstm." + k: v for k, v in lstm_state(sep["blstm"]).items()})
         named["proj.weight"] = _t(sep["proj"]["w"]).T
         named["proj.bias"] = _t(sep["proj"]["b"])
+    else:
+        for key in ("tcn", "proj_mask"):
+            named.update(_flatten(sep[key], key + "."))
     return named
 
 
@@ -60,15 +92,41 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return np.ascontiguousarray(t.detach().to("cpu", torch.float32).numpy())
 
 
-def jax_tree(named: dict, layers: int) -> dict:
+def _unflatten(named: dict) -> dict:
+    """The inverse of ``_flatten``: ``weight`` and ``bias`` back to ``w =
+    weightᵀ`` and ``b``, a list's entries keyed "0", "1", ... as a checkpoint
+    stores them."""
+    tree: dict = {}
+    for name, v in named.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        if leaf == "weight":
+            node["w"] = _np(v.T)
+        elif leaf == "bias":
+            node["b"] = _np(v)
+        else:
+            node[leaf] = _np(v)
+    return tree
+
+
+def jax_tree(named: dict, layers: int | None = None) -> dict:
     """The JAX tree, as numpy arrays, of named tensors laid out as the port's
     parameters: the parameters themselves, or Adam's moments or gradients of
-    them.  ``b = bias_ih + bias_hh`` where both are present, else ``bias_ih``.
-    Layers are keyed "0", "1", ... as a checkpoint stores them.  Without a
-    ``proj.weight`` (the autoencoder) the tree has the front alone."""
+    them.  For the BLSTM ``b = bias_ih + bias_hh`` where both are present,
+    else ``bias_ih``, over ``layers`` layers (by default as many as the names
+    hold).  Without a head (the autoencoder) the tree has the front alone."""
     front = {n[len("front."):]: _np(v) for n, v in named.items() if n.startswith("front.")}
+    if "proj_mask.weight" in named:
+        sep = _unflatten({n: v for n, v in named.items()
+                          if n.startswith(("tcn.", "proj_mask."))})
+        return {"front": front, "separator": sep}
     if "proj.weight" not in named:
         return {"front": front}
+    if layers is None:
+        layers = sum(1 for n in named if n.startswith("blstm.lstm.weight_ih_l")
+                     and not n.endswith("_reverse"))
     blstm = {}
     for i in range(layers):
         layer = {}
@@ -84,26 +142,26 @@ def jax_tree(named: dict, layers: int) -> dict:
     return {"front": front, "separator": {"blstm": blstm, "proj": proj}}
 
 
-def params_to_jax(model: DPCLModel) -> dict:
+def params_to_jax(model: DPCLModel | TasNetModel) -> dict:
     """The inverse of ``params_from_jax``: the model's parameters as the JAX
     package's tree of numpy arrays, in the checkpoint's layout."""
-    return jax_tree(dict(model.named_parameters()), model.cfg.sep.layers)
+    return jax_tree(dict(model.named_parameters()))
 
 
-def params_from_jax(cfg: ModelConfig, params: dict, device=None) -> DPCLModel:
-    """A ``DPCLModel`` holding a JAX parameter tree given as numpy arrays.
-
-    ``params`` is ``{"front": front, "separator": {"blstm": layers, "proj":
-    {w, b}}}`` with ``layers`` a list, or a dict keyed "0", "1", ... as a
-    checkpoint stores it.  Each LSTM direction maps as ``weight_ih = wxᵀ``,
-    ``weight_hh = whᵀ``, ``bias_ih = b``, ``bias_hh = 0``; the dense head as
-    ``weight = wᵀ``; a learned front's tensors as they are."""
+def params_from_jax(cfg: ModelConfig, params: dict, device=None) -> DPCLModel | TasNetModel:
+    """The model of ``cfg.kind`` (``dpcl`` or ``tasnet``) holding a JAX
+    parameter tree given as numpy arrays (lists, or dicts keyed "0", "1", ...
+    as a checkpoint stores them).  Each LSTM direction maps as ``weight_ih =
+    wxᵀ``, ``weight_hh = whᵀ``, ``bias_ih = b``, ``bias_hh = 0``; each dense
+    as ``weight = wᵀ``; everything else as it is."""
     device = resolve_device(device)
-    model = DPCLModel(cfg)
+    if cfg.kind not in _MODELS:
+        raise NotImplementedError(f"model kind {cfg.kind!r} is not ported yet")
+    model = _MODELS[cfg.kind](cfg)
     sep = params["separator"]
-    layers = sep["blstm"]
-    if len(layers) != cfg.sep.layers:
-        raise ValueError(f"{len(layers)} BLSTM layers in the params, config says {cfg.sep.layers}")
+    if "blstm" in sep and len(sep["blstm"]) != cfg.sep.layers:
+        raise ValueError(f"{len(sep['blstm'])} BLSTM layers in the params, config says "
+                         f"{cfg.sep.layers}")
     state = named_from_jax(params)
     # the STFT front's bases are buffers computed from the config
     state.update({k: v for k, v in model.named_buffers() if k.startswith("front.")})
@@ -111,11 +169,9 @@ def params_from_jax(cfg: ModelConfig, params: dict, device=None) -> DPCLModel:
     return model.to(device).eval()
 
 
-def load_model_from_run(run_dir: str, device=None) -> DPCLModel:
+def load_model_from_run(run_dir: str, device=None) -> DPCLModel | TasNetModel:
     """Rebuild a trained model from a run dir (config.json + best checkpoint)."""
     device = resolve_device(device)
     with open(os.path.join(run_dir, "config.json")) as f:
         recipe = recipe_from_dict(json.load(f))
-    if recipe.model.kind != "dpcl":
-        raise NotImplementedError(f"model kind {recipe.model.kind!r} is not ported yet")
     return params_from_jax(recipe.model, load_params(run_dir), device=device)

@@ -43,7 +43,22 @@ Phases, each printing its wall seconds:
 9. long-form serving: c1 on a corpus of phase 3's utterances and two-speaker
    mixtures of 60 s and 90 s, which take ``separate_long`` in chunks of
    64000 samples, twice; launch counts, RTF, and the long mixtures' quality,
-   which must reach LONG_QUALITY_MIN_DB.
+   which must reach LONG_QUALITY_MIN_DB;
+10. c6's kernels: B1 and B2 forced with the learned bases of
+   ``checkpoints/c6_flagship`` (16/8) and ``checkpoints/c6_3spk`` (32/16) at
+   their serving shapes and at the c6 recipe's and the flagship's training
+   shapes, forward against the plain versions and gradients against their
+   autograd; at the serving shapes timed beside the plain versions, the
+   library calls and the bounds, and the shape gate's decision printed;
+11. c6 serving: ``checkpoints/c6_flagship`` (bf16 operands) through
+   ``StreamingSeparator`` as in phase 3, its quality (S = 2, C6_QUALITY_MIN_DB)
+   and ``checkpoints/c6_3spk``'s (S = 3, C6_3SPK_QUALITY_MIN_DB) on phase 4's
+   protocol, and the flagship on the card against the port on the CPU;
+   every path's launches equal what the gate says (0 where it is closed);
+12. c6 training: the c6 recipe at full width (TCN of 3 x 8 blocks, batch 8
+   of 16384, L32/16, float32, remat) for C6_STEPS steps with phase 5's
+   checks, then one bf16 step of the flagship at its config's batch of 16 x
+   16384 from the checkpoint's weights, loss and gradients against the CPU.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero,
@@ -129,6 +144,43 @@ LONG_SECONDS = (60, 90) * 4
 LONG_SEED0 = 30000
 LONG_QUALITY_MIN_DB = 3.55
 
+# phase 10: the c6 checkpoints (their learned front's bases are B1's and B2's)
+C6_FLAGSHIP = os.path.join(REPO, "checkpoints", "c6_flagship")
+C6_3SPK = os.path.join(REPO, "checkpoints", "c6_3spk")
+# phase 11: c6_flagship scores 13.396 dB [12.843, 13.958] (S = 2) and
+# c6_3spk 8.477 dB [8.032, 8.913] (S = 3) on phase 4's protocol through the
+# JAX package on the CPU, and the port agrees (13.395 and 8.477; python
+# tests/test_torch_c6_slice.py).  Each gate sits at the lower end of the
+# reference's 95% interval.
+C6_QUALITY_MIN_DB = 12.84
+C6_3SPK_QUALITY_MIN_DB = 8.03
+# the flagship's output on the card against the port's on the CPU, as SI-SDR
+# of one against the other.  bf16 operands make the two differ where a sum
+# order flips a rounding to bf16: two float32 sum orders on the CPU (float32
+# against float64 accumulation) agree to 55.0-57.8 dB
+C6_CARD_CPU_MIN_DB = 40.0
+# phase 12: the c6 recipe at full width, cut to C6_STEPS steps (the recipe
+# says 1000) on phase 5's corpus
+C6_STEPS = 200
+C6_VALID_EVERY = 100
+# its first step, card against CPU: the loss to STEP_LOSS_TOL, each gradient
+# to C6_STEP_GRAD_TOL of its largest CPU magnitude.  The encoder's gradient
+# passes through log(|z| + 1e-7) of near-silent codes, whose slope magnifies
+# float32 rounding: on the CPU, float32 against float64 gives front.enc's
+# gradient 9.5e-4 of its scale apart (the TCN's at most 7.7e-4), so two
+# float32 sum orders may differ by twice that
+C6_STEP_GRAD_TOL = 5e-3
+# and one bf16 step of the flagship at its config.json batch (16 x 16384) from
+# the checkpoint's weights, card against CPU.  Two float32 sum orders on the
+# CPU (float32 against float64 accumulation, batch 4) gave losses 5.8e-4 dB
+# apart (the loss is -SI-SDR in dB, near 0 on some batches, so it is held
+# absolutely), gradients 4.4% apart in norm over all tensors and at most
+# 11.3% for one tensor: bf16 roundings of operands and of gradients flip with
+# the sum order
+C6_BF16_LOSS_TOL_DB = 0.01
+C6_BF16_GRAD_TOL = 0.15  # ||g_card - g_cpu|| / ||g_cpu|| over all tensors
+C6_BF16_TENSOR_TOL = 0.4  # the same for each tensor alone
+
 # name -> (source, the TPU kernel it replaces, its design)
 KERNELS = {
     "framed_matmul": ("amss_tpu_torch/csrc/framed_matmul.cu",
@@ -168,6 +220,21 @@ def check(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float
     if not err <= tol:
         raise AssertionError(f"{name}: max abs error {err} > {tol}")
     return err
+
+
+def launch_counts() -> dict:
+    """Each kernel wrapper's count of launches."""
+    from amss_tpu_torch.ops.kernels.framed_matmul import framed_matmul
+    from amss_tpu_torch.ops.kernels.ola import decode_ola
+
+    return {"framed_matmul": framed_matmul.launches, "decode_ola": decode_ola.launches}
+
+
+def reset_launches() -> None:
+    from amss_tpu_torch.ops.kernels.framed_matmul import framed_matmul
+    from amss_tpu_torch.ops.kernels.ola import decode_ola
+
+    framed_matmul.launches = decode_ola.launches = 0
 
 
 def bound(flops: float, nbytes: float) -> dict:
@@ -452,6 +519,39 @@ def phase_gradients(gen: torch.Generator) -> dict:
     return {"checks": out, "times": times}
 
 
+def time_pair(x, enc, codes, dec, hop: int, length: int, force: bool = False) -> dict:
+    """B1 on ``x`` with ``enc`` and B2 on ``codes`` with ``dec``, each timed
+    beside its plain version, its library call (cuDNN, TF32 off, channels
+    first) and its bounds."""
+    from amss_tpu_torch.ops.kernels.framed_matmul import framed_matmul, framed_matmul_ref
+    from amss_tpu_torch.ops.kernels.ola import decode_ola, decode_ola_ref
+    from amss_tpu_torch.utils.timing import time_ms
+
+    win, k = enc.shape
+    b, nf = x.shape[0], 1 + (x.shape[1] - win) // hop
+    b2 = codes.shape[0]
+    w_conv = enc.T.contiguous()[:, None, :]
+    codes_t = codes.transpose(1, 2).contiguous()
+    w_t = dec[:, None, :].contiguous()
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        b1_lib = time_ms(lambda: F.conv1d(x[:, None, :], w_conv, stride=hop))
+        b2_lib = time_ms(lambda: F.conv_transpose1d(codes_t, w_t, stride=hop)[:, 0, :length])
+    return {
+        "framed_matmul": dict(
+            shape=f"x {list(x.shape)} x enc {list(enc.shape)}, hop {hop}",
+            ms=time_ms(lambda: framed_matmul(x, enc, hop, force=force)),
+            plain_ms=time_ms(lambda: framed_matmul_ref(x, enc, hop)), library_ms=b1_lib,
+            **bound(2.0 * b * nf * k * win, 4.0 * (x.numel() + enc.numel() + b * nf * k))),
+        "decode_ola": dict(
+            shape=f"codes {list(codes.shape)} x dec {list(dec.shape)}, hop {hop} -> {length}",
+            ms=time_ms(lambda: decode_ola(codes, dec, hop, length=length, force=force)),
+            plain_ms=time_ms(lambda: decode_ola_ref(codes, dec, hop, length)),
+            library_ms=b2_lib,
+            **bound(2.0 * b2 * codes.shape[1] * codes.shape[2] * dec.shape[1],
+                    4.0 * (codes.numel() + dec.numel() + b2 * length))),
+    }
+
+
 def phase_kernels_c2(gen: torch.Generator) -> dict:
     """B1 and B2 with c2_adapt's learned bases (enc [256, 256], dec [256,
     256], stride 64) at c2's serving and training shapes: forward against the
@@ -460,7 +560,6 @@ def phase_kernels_c2(gen: torch.Generator) -> dict:
     from amss_tpu_torch.ckpt.checkpoint import load_params
     from amss_tpu_torch.ops.kernels.framed_matmul import framed_matmul, framed_matmul_ref
     from amss_tpu_torch.ops.kernels.ola import decode_ola, decode_ola_ref
-    from amss_tpu_torch.utils.timing import time_ms
 
     dev = torch.device("cuda")
 
@@ -491,28 +590,9 @@ def phase_kernels_c2(gen: torch.Generator) -> dict:
     check("dec [256, 256] [8, 252, 256] -> 16384 (c2 recon)", decode_ola(zt, dec, hop, 16384),
           decode_ola_ref(zt, dec, hop, 16384), 2e-4)
 
-    out = {}
-    b, nf, k = z.shape
-    w_conv = enc.T.contiguous()[:, None, :]
-    codes_t = codes.transpose(1, 2).contiguous()
-    w_t = dec[:, None, :].contiguous()
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        b1_lib = time_ms(lambda: F.conv1d(x[:, None, :], w_conv, stride=hop))
-        b2_lib = time_ms(lambda: F.conv_transpose1d(codes_t, w_t, stride=hop)[:, 0, :length])
-    out["framed_matmul"] = dict(
-        shape="x [8, 64000] x enc [256, 256], hop 64",
-        ms=time_ms(lambda: framed_matmul(x, enc, hop)),
-        plain_ms=time_ms(lambda: framed_matmul_ref(x, enc, hop)), library_ms=b1_lib,
-        max_abs_err=b1_err, tol=2e-4,
-        **bound(2.0 * b * nf * k * enc.shape[0], 4.0 * (x.numel() + enc.numel() + b * nf * k)))
-    b2n, nf2, k2 = codes.shape
-    out["decode_ola"] = dict(
-        shape="codes [16, 996, 256] x dec [256, 256], hop 64 -> 64000",
-        ms=time_ms(lambda: decode_ola(codes, dec, hop, length=length)),
-        plain_ms=time_ms(lambda: decode_ola_ref(codes, dec, hop, length)), library_ms=b2_lib,
-        max_abs_err=b2_err, tol=2e-4,
-        **bound(2.0 * b2n * nf2 * k2 * dec.shape[1],
-                4.0 * (codes.numel() + dec.numel() + b2n * length)))
+    out = time_pair(x, enc, codes, dec, hop, length)
+    out["framed_matmul"].update(max_abs_err=b1_err, tol=2e-4)
+    out["decode_ola"].update(max_abs_err=b2_err, tol=2e-4)
 
     say("c2: gradients with the learned bases vs autograd of the plain versions")
     grads = {"framed_matmul": [], "decode_ola": []}
@@ -556,34 +636,35 @@ def check_kmeans_needs_no_host_sync(gen: torch.Generator) -> None:
     say("  k-means + soft masks [8, 128613, 40]: no host sync")
 
 
-def phase_speed(model) -> tuple[dict, dict]:
+def phase_speed(model, per_call: dict | None = None) -> tuple[dict, dict]:
+    """Serve phase 3's utterances twice; ``per_call`` is each kernel's
+    launches per batch call (1 each by default)."""
     from amss_tpu_torch.infer.streaming import BucketSpec, StreamingSeparator
-    from amss_tpu_torch.ops.kernels.framed_matmul import framed_matmul
-    from amss_tpu_torch.ops.kernels.ola import decode_ola
 
     t = SECONDS * SAMPLE_RATE
     rng = np.random.default_rng(0)
     waves = [rng.standard_normal(t).astype(np.float32) * 0.3 for _ in range(N_UTTS)]
     sep = StreamingSeparator(model, sample_rate=SAMPLE_RATE, buckets=BucketSpec(lengths=(t,)))
     calls = N_UTTS // BATCH
-    wrappers = {"framed_matmul": framed_matmul, "decode_ola": decode_ola}
 
-    for w in wrappers.values():
-        w.launches = 0
+    reset_launches()
     est = sep.separate_all(waves, max_batch=BATCH)  # pass 1 warms the one shape
-    after1 = {n: w.launches for n, w in wrappers.items()}
+    after1 = launch_counts()
     rtf1 = sep.meter.rtf
     sep.meter.compute_seconds = sep.meter.audio_seconds = 0.0
     sep.meter.utterances = sep.meter.calls = 0
     est = sep.separate_all(waves, max_batch=BATCH)
-    launches = {n: w.launches for n, w in wrappers.items()}
+    launches = launch_counts()
 
-    for n in wrappers:
-        if after1[n] != calls + 1 or launches[n] - after1[n] != calls:
+    per_call = per_call or {n: 1 for n in launches}
+    for n in launches:
+        k = per_call[n]
+        if after1[n] != k * (calls + 1) or launches[n] - after1[n] != k * calls:
             raise AssertionError(
-                f"{n}: launches {after1[n]} after pass 1 (want {calls} + 1 warm-up) "
-                f"and {launches[n] - after1[n]} in pass 2 (want {calls})")
-    if len(est) != N_UTTS or any(e.shape != (2, t) for e in est):
+                f"{n}: launches {after1[n]} after pass 1 (want {k} x ({calls} + 1 warm-up)) "
+                f"and {launches[n] - after1[n]} in pass 2 (want {k} x {calls})")
+    s = model.cfg.nb_speakers
+    if len(est) != N_UTTS or any(e.shape != (s, t) for e in est):
         raise AssertionError("separate_all returned the wrong shapes")
     if not all(np.isfinite(e).all() for e in est):
         raise AssertionError("separate_all returned non-finite samples")
@@ -593,15 +674,25 @@ def phase_speed(model) -> tuple[dict, dict]:
     return out, launches
 
 
-def phase_quality(model) -> dict:
+def quality_mixtures(s: int = 2, n: int | None = None) -> np.ndarray:
+    """bench.py's protocol: ``n`` (QUALITY_N) sets of ``s`` v2 speakers of
+    QUALITY_T samples from seeds ``9000 + s·i + j``, ``[n, s, T]``."""
     from amss_tpu_torch.data.synthetic import synth_speaker_wave_v2
+
+    n = n or QUALITY_N
+    return np.stack([
+        np.stack([synth_speaker_wave_v2(9000 + s * i + j, n_samples=QUALITY_T) for j in range(s)])
+        for i in range(n)
+    ]).astype(np.float32)
+
+
+def phase_quality(model) -> dict:
+    """PIT SI-SDRi of ``model`` on bench.py's protocol for its number of
+    speakers, served by StreamingSeparator in batches of BATCH."""
     from amss_tpu_torch.infer.streaming import BucketSpec, StreamingSeparator
     from amss_tpu_torch.ops.metrics import sdr_improvement
 
-    refs = np.stack([
-        np.stack([synth_speaker_wave_v2(9000 + 2 * i + j, n_samples=QUALITY_T) for j in range(2)])
-        for i in range(QUALITY_N)
-    ]).astype(np.float32)
+    refs = quality_mixtures(model.cfg.nb_speakers)
     mixes = refs.sum(axis=1)
     sep = StreamingSeparator(model, sample_rate=SAMPLE_RATE,
                              buckets=BucketSpec(lengths=(QUALITY_T,)))
@@ -613,7 +704,20 @@ def phase_quality(model) -> dict:
     return dict(si_sdri_db=float(imp.mean()), ci95=[float(lo), float(hi)], n=int(imp.size))
 
 
-def first_step_matches_cpu(tr, state0: dict, batch0) -> dict:
+def unread_parameters(model) -> set:
+    """The trainable parameters whose gradient is None because the loss never
+    reads them: the autoencoder's smoothing filter (its loss never reads the
+    features), and TasNet's last residual conv (only the last block's skip
+    output reaches the masks)."""
+    if model.cfg.kind == "adapt_ae":
+        return {"front.smooth"}
+    if model.cfg.kind == "tasnet":
+        last = f"tcn.blocks.{len(model.tcn.blocks) - 1}.pw_res."
+        return {last + "weight", last + "bias"}
+    return set()
+
+
+def first_step_matches_cpu(tr, state0: dict, batch0, grad_tol: float = STEP_GRAD_TOL) -> dict:
     """The card's first step against the same step on the CPU through the
     port's plain path (plain kernels, the BLSTM as a loop), from the same init
     and batch: the loss, each term of it, and every gradient.
@@ -630,7 +734,7 @@ def first_step_matches_cpu(tr, state0: dict, batch0) -> dict:
         loss.backward()
         grads = {n: None if p.grad is None else p.grad.detach().cpu()
                  for n, p in model.named_parameters() if p.requires_grad}
-        return float(loss.detach()), {k: float(v) for k, v in metrics.items()}, grads
+        return float(loss.detach()), {k: float(v.detach()) for k, v in metrics.items()}, grads
 
     tr.load_state(state0)
     loss_gpu, terms_gpu, grads_gpu = loss_and_grads(tr.model, tr.device)
@@ -660,9 +764,8 @@ def first_step_matches_cpu(tr, state0: dict, batch0) -> dict:
     if set(grads_gpu) != set(grads_cpu):
         raise AssertionError(f"gradients on the card {sorted(grads_gpu)}, on the CPU "
                              f"{sorted(grads_cpu)}")
-    # every trainable parameter has a gradient, save the autoencoder's
-    # smoothing filter: its loss never reads the features
-    no_grad = {"front.smooth"} if tr.recipe.model.kind == "adapt_ae" else set()
+    # every trainable parameter has a gradient, save those the loss never reads
+    no_grad = unread_parameters(tr.model)
     for where, grads in (("card", grads_gpu), ("CPU", grads_cpu)):
         missing = {n for n, g in grads.items() if g is None}
         if missing != no_grad:
@@ -675,31 +778,27 @@ def first_step_matches_cpu(tr, state0: dict, batch0) -> dict:
         scale = float(g.abs().max())
         err = max_err(grads_gpu[n], g) / scale
         worst = max(worst, err)
-        if not err <= STEP_GRAD_TOL:
+        if not err <= grad_tol:
             raise AssertionError(f"first step gradient {n}: {err:.3e} of {scale:.3g} "
-                                 f"> {STEP_GRAD_TOL}")
+                                 f"> {grad_tol}")
     say(f"  first step: {len(grads_cpu) - len(no_grad)} gradients, worst {worst:.2e} of each tensor's "
-        f"largest CPU magnitude (tol {STEP_GRAD_TOL:g})")
+        f"largest CPU magnitude (tol {grad_tol:g})")
     return dict(loss_card=loss_gpu, loss_cpu=loss_cpu, loss_rel_err=rel, grad_worst_rel_err=worst)
 
 
 def check_train_step_needs_no_host_sync(tr, batch0) -> dict:
     """One train step under CUDA's sync debug mode "error"; returns each
     kernel's launches in that step."""
-    from amss_tpu_torch.ops.kernels.framed_matmul import framed_matmul
-    from amss_tpu_torch.ops.kernels.ola import decode_ola
-
     batch = tr._device_batch(batch0)
     torch.cuda.synchronize()
-    before = {"framed_matmul": framed_matmul.launches, "decode_ola": decode_ola.launches}
+    before = launch_counts()
     torch.cuda.set_sync_debug_mode("error")
     try:
         tr._train_step(batch)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    per_step = {"framed_matmul": framed_matmul.launches - before["framed_matmul"],
-                "decode_ola": decode_ola.launches - before["decode_ola"]}
+    per_step = {n: k - before[n] for n, k in launch_counts().items()}
     say(f"  one train step (front, trunk, loss, backward, clip, Adam): no host sync; "
         f"launches {per_step}")
     return per_step
@@ -828,8 +927,6 @@ def phase_long(model) -> tuple[dict, dict]:
     separate_long in chunks of 64000); returns (results, launches)."""
     from amss_tpu_torch.infer.long import _group_widths, chunk_layout, separate_long
     from amss_tpu_torch.infer.streaming import BucketSpec, StreamingSeparator
-    from amss_tpu_torch.ops.kernels.framed_matmul import framed_matmul
-    from amss_tpu_torch.ops.kernels.ola import decode_ola
     from amss_tpu_torch.ops.metrics import sdr_improvement
 
     t = SECONDS * SAMPLE_RATE
@@ -841,20 +938,18 @@ def phase_long(model) -> tuple[dict, dict]:
     half = N_UTTS // 2  # the long ones in the middle: results must keep input order
     waves = shorts[:half] + mixes + shorts[half:]
     sep = StreamingSeparator(model, sample_rate=SAMPLE_RATE, buckets=BucketSpec(lengths=(t,)))
-    wrappers = {"framed_matmul": framed_matmul, "decode_ola": decode_ola}
     chunks = [len(chunk_layout(len(m), t)[1]) for m in mixes]
     calls = N_UTTS // BATCH + sum(len(_group_widths(n)) for n in chunks)
     warm = 1 + 2  # one bucket shape; warm_long's two group widths
 
-    for w in wrappers.values():
-        w.launches = 0
+    reset_launches()
     sep.separate_all(waves, max_batch=BATCH)
-    after1 = {n: w.launches for n, w in wrappers.items()}
+    after1 = launch_counts()
     sep.meter.compute_seconds = sep.meter.audio_seconds = 0.0
     sep.meter.utterances = sep.meter.calls = 0
     est = sep.separate_all(waves, max_batch=BATCH)
-    launches = {n: w.launches for n, w in wrappers.items()}
-    for n in wrappers:
+    launches = launch_counts()
+    for n in launches:
         if after1[n] != calls + warm or launches[n] - after1[n] != calls:
             raise AssertionError(
                 f"{n}: launches {after1[n]} after pass 1 (want {calls} + {warm} warm-up) and "
@@ -890,19 +985,13 @@ def phase_long(model) -> tuple[dict, dict]:
 def _fit_counted(tr, state: dict) -> tuple[dict, dict, float, int]:
     """``tr.fit(state)`` with the kernels' counts set to 0 just before it:
     (final state, launches, wall seconds, peak device bytes)."""
-    from amss_tpu_torch.ops.kernels.framed_matmul import framed_matmul
-    from amss_tpu_torch.ops.kernels.ola import decode_ola
-
-    wrappers = {"framed_matmul": framed_matmul, "decode_ola": decode_ola}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for w in wrappers.values():
-        w.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     final = tr.fit(state, log_every=TRAIN_LOG_EVERY)
     torch.cuda.synchronize()
-    return (final, {n: w.launches for n, w in wrappers.items()}, time.perf_counter() - t0,
-            torch.cuda.max_memory_allocated())
+    return final, launch_counts(), time.perf_counter() - t0, torch.cuda.max_memory_allocated()
 
 
 def _valid_losses(run_dir: str) -> list:
@@ -1011,6 +1100,235 @@ def phase_train_c2(store, workdir: str) -> tuple[dict, dict]:
                      valid_loss=valid, front_moved_after_freeze=moved,
                      launches_per_step=per_step, **step_check)
     return out, launches
+
+
+def _c6_bases(run: str) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """(enc [L, N], dec [N, L], stride) of a c6 checkpoint's front, on the card."""
+    from amss_tpu_torch.ckpt.checkpoint import load_params
+
+    with open(os.path.join(run, "config.json")) as f:
+        stride = json.load(f)["model"]["front"]["stride"]
+    front = load_params(run)["front"]
+    return (torch.as_tensor(front["enc"], device="cuda"),
+            torch.as_tensor(front["dec"], device="cuda"), stride)
+
+
+def phase_kernels_c6(gen: torch.Generator) -> dict:
+    """B1 and B2 forced at c6's shapes with the checkpoints' learned bases:
+    the flagship's and c6_3spk's serving shapes and the c6 recipe's and the
+    flagship's training shapes.  Forward against the plain versions,
+    gradients against their autograd, and at the serving shapes each timed
+    beside its plain version, its library call and its bound.  The gate opens
+    a (win, hop) for the pair when both kernels beat their plain versions."""
+    from amss_tpu_torch.ops.kernels.framed_matmul import (
+        framed_matmul, framed_matmul_ref, profitable)
+    from amss_tpu_torch.ops.kernels.ola import decode_ola, decode_ola_ref
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    length = SECONDS * SAMPLE_RATE
+    out = {"serve": {}, "grad_checks": {"framed_matmul": [], "decode_ola": []}, "gate": {}}
+    for name, run, s in (("c6_flagship", C6_FLAGSHIP, 2), ("c6_3spk", C6_3SPK, 3)):
+        enc, dec, hop = _c6_bases(run)
+        win = enc.shape[0]
+        say(f"{name}: B1 and B2 forced, {win}/{hop}, K = {enc.shape[1]}")
+        x = randn(BATCH, length, scale=0.3)
+        z = framed_matmul(x, enc, hop, force=True)
+        b1_err = check(f"enc {list(enc.shape)} [8, 64000] ({name} serving; |out| <= "
+                       f"{float(z.abs().max()):.3g})", z, framed_matmul_ref(x, enc, hop), 2e-4)
+        # the masked codes of s speakers: [B·S, T', N]
+        codes = torch.cat([z * (0.5 ** i) for i in range(s)]).contiguous()
+        y = decode_ola(codes, dec, hop, length=length, force=True)
+        b2_err = check(f"dec {list(dec.shape)} {list(codes.shape)} -> 64000 ({name} serving; "
+                       f"|out| <= {float(y.abs().max()):.3g})", y,
+                       decode_ola_ref(codes, dec, hop, length), 2e-4)
+        out["serve"][name] = pair = time_pair(x, enc, codes, dec, hop, length, force=True)
+        b1, b2 = pair["framed_matmul"], pair["decode_ola"]
+        b1.update(max_abs_err=b1_err, tol=2e-4)
+        b2.update(max_abs_err=b2_err, tol=2e-4)
+        k = enc.shape[1]
+        measured = b1["ms"] < b1["plain_ms"] and b2["ms"] < b2["plain_ms"]
+        out["gate"][f"{win}/{hop}"] = dict(kernels_win=measured, profitable=profitable(win, hop))
+        for kname, r in (("B1", b1), ("B2", b2)):
+            say(f"  {kname} at {name} serving ({r['shape']}): forced {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
+                f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})")
+        say(f"  gate at {win}/{hop}: both kernels beat their plain versions: {measured}; "
+            f"profitable({win}, {hop}) = {profitable(win, hop)}")
+
+        # gradients at the training shapes: c6 (32/16, 8 x 16384, 2 speakers)
+        # and the flagship (16/8, its config's 16 x 16384)
+        tb, train = (8, "c6 recipe training") if name == "c6_3spk" else (16, "flagship step")
+        xt = randn(tb, 16384, scale=0.3)
+        nft = 1 + (16384 - win) // hop
+        cot = randn(tb, nft, k)
+        what = f"x [{tb}, 16384] enc {list(enc.shape)} hop {hop} ({train})"
+        out["grad_checks"]["framed_matmul"].append(grad_check(
+            what, lambda a, e: framed_matmul(a, e, hop, force=True),
+            lambda a, e: framed_matmul_ref(a, e, hop), [xt, enc], cot, 2e-4, decode_ola))
+        ct = randn(2 * tb, nft, k, scale=0.3)
+        what = f"codes [{2 * tb}, {nft}, {k}] dec {list(dec.shape)} -> 16384 ({train})"
+        out["grad_checks"]["decode_ola"].append(grad_check(
+            what, lambda c, d: decode_ola(c, d, hop, 16384, force=True),
+            lambda c, d: decode_ola_ref(c, d, hop, 16384), [ct, dec], randn(2 * tb, 16384),
+            2e-4, framed_matmul))
+    return out
+
+
+def _gate_launches(cfg) -> dict:
+    """Each kernel's launches in one ``separate`` call of a model whose front
+    is ``cfg``: one each where the gate opens the front's (win, hop), else 0."""
+    from amss_tpu_torch.ops.kernels.framed_matmul import profitable
+
+    k = int(profitable(cfg.front.filter_len, cfg.front.stride))
+    return {"framed_matmul": k, "decode_ola": k}
+
+
+def phase_serve_c6() -> tuple[dict, dict]:
+    """c6_flagship served as phase 3 serves c1, its quality and c6_3spk's on
+    phase 4's protocol, and the flagship on the card against the port on the
+    CPU; returns (results, launches by path)."""
+    from amss_tpu_torch.models.blstm import BF16_PRODUCT
+    from amss_tpu_torch.ops.metrics import si_sdr
+    from amss_tpu_torch.weights import load_model_from_run
+
+    out, launches = {"bf16_product": BF16_PRODUCT}, {}
+    say(f"  the TCN's bf16 products on the card: {BF16_PRODUCT}")
+    model = load_model_from_run(C6_FLAGSHIP)
+    per_call = _gate_launches(model.cfg)
+    out["speed"], launches["c6_flagship_serve"] = phase_speed(model, per_call)
+    for key, run, gate in (("quality", None, C6_QUALITY_MIN_DB),
+                           ("quality_3spk", C6_3SPK, C6_3SPK_QUALITY_MIN_DB)):
+        m = model if run is None else load_model_from_run(run)
+        reset_launches()
+        q = phase_quality(m)
+        got = launch_counts()
+        calls = -(-QUALITY_N // BATCH) + 1  # + the warm-up
+        k = _gate_launches(m.cfg)
+        if got != {n: k[n] * calls for n in k}:
+            raise AssertionError(f"{key}: launches {got}, want {k} x {calls}")
+        launches[f"{os.path.basename(run or C6_FLAGSHIP)}_quality"] = got
+        say(f"  {os.path.basename(run or C6_FLAGSHIP)} quality (64 mixtures of "
+            f"{m.cfg.nb_speakers} speakers): si_sdri {q['si_sdri_db']:.3f} dB, 95% CI "
+            f"{q['ci95']} (gate {gate} dB), launches {got}")
+        if not q["si_sdri_db"] >= gate:
+            raise AssertionError(f"{key}: SI-SDRi {q['si_sdri_db']:.3f} dB < {gate} dB")
+        out[key] = q
+
+    mix = torch.from_numpy(quality_mixtures(2, 2).sum(axis=1))
+    card = model.separate(mix.cuda()).cpu().double()
+    cpu = load_model_from_run(C6_FLAGSHIP, device="cpu").separate(mix).double()
+    db = si_sdr(card, cpu)
+    say(f"  c6_flagship on the card against the port on the CPU, two mixtures: SI-SDR "
+        f"{[round(float(v), 2) for v in db.flatten()]} dB (bound {C6_CARD_CPU_MIN_DB} dB)")
+    if not bool((db >= C6_CARD_CPU_MIN_DB).all()):
+        raise AssertionError(f"card against CPU: {db.tolist()} dB")
+    out["card_vs_cpu_db"] = [float(v) for v in db.flatten()]
+    return out, launches
+
+
+def bf16_step_matches_cpu(store) -> dict:
+    """One step of the flagship (bf16 operands) at its config's batch of 16 x
+    16384, from the checkpoint's weights: the loss and every gradient on the
+    card against the port on the CPU, the card's launches and peak memory."""
+    from amss_tpu_torch.data.mixer import Mixer
+    from amss_tpu_torch.utils.config import recipe_from_dict
+    from amss_tpu_torch.weights import load_model_from_run
+
+    with open(os.path.join(C6_FLAGSHIP, "config.json")) as f:
+        recipe = recipe_from_dict(json.load(f))
+    batch_size = recipe.train.batch_size
+    sources = torch.from_numpy(Mixer(store, nb_speakers=2, chunk_samples=16384, seed=0)
+                               .batch("train", 0, batch_size).sources)
+
+    def loss_and_grads(device):
+        model = load_model_from_run(C6_FLAGSHIP, device=device).train()
+        loss, _ = model.loss(sources.to(device), training=True)
+        loss.backward()
+        skip = unread_parameters(model)
+        return float(loss.detach()), {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+                             if n not in skip}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    loss_gpu, grads_gpu = loss_and_grads("cuda")
+    torch.cuda.synchronize()
+    peak, launches = torch.cuda.max_memory_allocated(), launch_counts()
+    loss_cpu, grads_cpu = loss_and_grads("cpu")
+    diff_db = abs(loss_gpu - loss_cpu)
+    diff = sum(float(((grads_gpu[n] - g) ** 2).sum()) for n, g in grads_cpu.items())
+    norm = sum(float((g**2).sum()) for g in grads_cpu.values())
+    grad_rel = (diff / norm) ** 0.5
+    tensor_rel = {n: float((grads_gpu[n] - g).norm() / g.norm()) for n, g in grads_cpu.items()}
+    worst = max(tensor_rel, key=tensor_rel.get)
+    say(f"  c6_flagship bf16 step, batch {batch_size} x 16384: loss card {loss_gpu:.6f} cpu "
+        f"{loss_cpu:.6f} ({diff_db:.2e} dB apart, tol {C6_BF16_LOSS_TOL_DB:g}); gradients "
+        f"{grad_rel:.3e} apart "
+        f"over all {len(grads_cpu)} tensors (tol {C6_BF16_GRAD_TOL:g}), worst tensor {worst} "
+        f"{tensor_rel[worst]:.3e} (tol {C6_BF16_TENSOR_TOL:g}); peak memory "
+        f"{peak / 2**30:.3f} GiB; launches {launches}")
+    if not diff_db <= C6_BF16_LOSS_TOL_DB:
+        raise AssertionError(f"bf16 step loss: card {loss_gpu}, cpu {loss_cpu}")
+    if not (grad_rel <= C6_BF16_GRAD_TOL and tensor_rel[worst] <= C6_BF16_TENSOR_TOL):
+        raise AssertionError(f"bf16 step gradients {grad_rel}, {worst} {tensor_rel[worst]}")
+    if not all(torch.isfinite(g).all() for g in grads_gpu.values()):
+        raise AssertionError("bf16 step: non-finite gradients on the card")
+    k = _gate_launches(recipe.model)
+    # the forward's B1 and B2, and B2's backward through B1
+    want = {"framed_matmul": 2 * k["framed_matmul"], "decode_ola": k["decode_ola"]}
+    if launches != want:
+        raise AssertionError(f"bf16 step launched {launches}, want {want}")
+    return dict(batch=batch_size, loss_card=loss_gpu, loss_cpu=loss_cpu, loss_diff_db=diff_db,
+                grad_rel_err=grad_rel, worst_tensor=worst, worst_tensor_rel_err=tensor_rel[worst],
+                peak_bytes=peak, launches=launches)
+
+
+def phase_train_c6(store, workdir: str) -> tuple[dict, dict]:
+    """The c6 recipe at full width through Trainer.fit, then one bf16 step of
+    the flagship; returns (results, launches by path)."""
+    from amss_tpu_torch.configs.recipes import c6_tasnet
+    from amss_tpu_torch.train.engine import Trainer
+
+    recipe = c6_tasnet(steps=C6_STEPS, valid_every=C6_VALID_EVERY)
+    t = recipe.train
+    tr = Trainer(recipe, store, workdir=os.path.join(workdir, "runs"))
+    say(f"  run dir {os.path.basename(tr.dir)}")
+    state0 = tr.init_state()
+    batch0 = tr.mixer.batch("train", 0, t.batch_size)
+    step_check = first_step_matches_cpu(tr, state0, batch0, grad_tol=C6_STEP_GRAD_TOL)
+    per_step = check_train_step_needs_no_host_sync(tr, batch0)
+    k = _gate_launches(recipe.model)
+    # the mixture's B1, the decode's B2 and B2's backward through B1 (the
+    # waveform is data: B1's backward needs no dx)
+    want_step = {"framed_matmul": 2 * k["framed_matmul"], "decode_ola": k["decode_ola"]}
+    if per_step != want_step:
+        raise AssertionError(f"a c6 step launched {per_step}, want {want_step}")
+    tr.load_state(state0)
+    valid0 = tr.valid_loss()
+    final, launches, fit_s, peak = _fit_counted(tr, state0)
+    n_valid = -(-t.steps // t.valid_every)
+    # per valid batch one B1 and one B2; per validation's images three B1
+    # (mixture, separate, its first speaker) and separate's B2
+    want = {"framed_matmul": want_step["framed_matmul"] * t.steps
+            + k["framed_matmul"] * (t.valid_steps + 3) * n_valid,
+            "decode_ola": k["decode_ola"] * (t.steps + (t.valid_steps + 1) * n_valid)}
+    if launches != want:
+        raise AssertionError(f"c6 training launches {launches}, want {want}")
+    valid = _valid_losses(tr.dir)
+    if len(valid) != n_valid or not valid[-1] < valid0:
+        raise AssertionError(f"c6 valid loss {valid0} at init, {valid} after training")
+    check_checkpoint_reloads(tr, final, t.steps)
+    ms = window_ms_per_step(tr.dir, skip={TRAIN_LOG_EVERY})
+    out = {"c6": dict(steps=t.steps, batch=t.batch_size, chunk=t.chunk_samples, fit_s=fit_s,
+                      ms_per_step=ms, steps_per_s=1e3 / ms, peak_bytes=peak,
+                      valid_loss_init=valid0, valid_loss=valid, launches_per_step=per_step,
+                      **step_check)}
+    say("c6_flagship: one bf16 step, card against CPU")
+    out["c6_flagship_bf16_step"] = bf16_step_matches_cpu(store)
+    return out, {"c6_train": launches,
+                 "c6_flagship_bf16_step": out["c6_flagship_bf16_step"]["launches"]}
 
 
 def main() -> None:
@@ -1123,20 +1441,49 @@ def main() -> None:
                 f"{r['launches_per_step']}")
         say(f"phase 8 c2 training: {time.perf_counter() - t0:.2f} s")
 
-    t0 = time.perf_counter()
-    long_form, long_launches = phase_long(model)
-    say(f"long-form (c1, {N_UTTS} x 8 s + {long_form['n_long']} mixtures of "
-        f"{LONG_SECONDS} s, chunks of 64000) on {card}: rtf {long_form['rtf_pass2']:.6f} on "
-        f"pass 2, {long_form['utterances_per_s']:.2f} utterances/s, si_sdri of the long "
-        f"mixtures {long_form['si_sdri_db']:.3f} dB, 95% CI {long_form['ci95']}, launches "
-        f"{long_launches}")
-    if not long_form["si_sdri_db"] >= LONG_QUALITY_MIN_DB:
-        raise AssertionError(f"long-form SI-SDRi {long_form['si_sdri_db']:.3f} dB < "
-                             f"{LONG_QUALITY_MIN_DB} dB")
-    say(f"phase 9 long-form: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        long_form, long_launches = phase_long(model)
+        say(f"long-form (c1, {N_UTTS} x 8 s + {long_form['n_long']} mixtures of "
+            f"{LONG_SECONDS} s, chunks of 64000) on {card}: rtf {long_form['rtf_pass2']:.6f} on "
+            f"pass 2, {long_form['utterances_per_s']:.2f} utterances/s, si_sdri of the long "
+            f"mixtures {long_form['si_sdri_db']:.3f} dB, 95% CI {long_form['ci95']}, launches "
+            f"{long_launches}")
+        if not long_form["si_sdri_db"] >= LONG_QUALITY_MIN_DB:
+            raise AssertionError(f"long-form SI-SDRi {long_form['si_sdri_db']:.3f} dB < "
+                                 f"{LONG_QUALITY_MIN_DB} dB")
+        say(f"phase 9 long-form: {time.perf_counter() - t0:.2f} s")
+
+        t0 = time.perf_counter()
+        kern_c6 = phase_kernels_c6(gen)
+        for name, checks in kern_c6["grad_checks"].items():
+            if any(c["launched"] != 1 for c in checks):
+                raise AssertionError(f"{name}: its backward launched the other kernel "
+                                     f"{[c['launched'] for c in checks]} times")
+        say(f"  gate (both kernels beat their plain versions at c6's serving shapes): "
+            f"{kern_c6['gate']}")
+        say(f"phase 10 c6 kernels: {time.perf_counter() - t0:.2f} s")
+
+        t0 = time.perf_counter()
+        serve_c6, serve_c6_launches = phase_serve_c6()
+        sp = serve_c6["speed"]
+        say(f"c6_flagship serving (64 x 8 s, batch 8) on {card}: rtf {sp['rtf_pass2']:.6f} "
+            f"(pass 1 {sp['rtf_pass1']:.6f}), {sp['utterances_per_s']:.2f} utterances/s, "
+            f"warm-up {sp['warmup_s']:.2f} s, launches {serve_c6_launches}")
+        say(f"phase 11 c6 serving: {time.perf_counter() - t0:.2f} s")
+
+        t0 = time.perf_counter()
+        train_c6, train_c6_launches = phase_train_c6(store, workdir)
+        r = train_c6["c6"]
+        say(f"training (c6 TCN 3x8 expansion 2, batch {r['batch']} x {r['chunk']}, "
+            f"{r['steps']} steps) on {card}: {r['ms_per_step']:.3f} ms/step median after "
+            f"warm-up, {r['steps_per_s']:.2f} steps/s, peak memory "
+            f"{r['peak_bytes'] / 2**30:.3f} GiB, valid loss {r['valid_loss_init']:.4f} -> "
+            f"{r['valid_loss'][-1]:.4f}, launches per step {r['launches_per_step']}")
+        say(f"phase 12 c6 training: {time.perf_counter() - t0:.2f} s")
 
     per_path = {"c1_serve": launches, "c1_train": train_launches, "c2_serve": launches_c2,
-                **train_c2_launches, "long_form": long_launches}
+                **train_c2_launches, "long_form": long_launches, **serve_c6_launches,
+                **train_c6_launches}
     record = []
     other = {"framed_matmul": "decode_ola", "decode_ola": "framed_matmul"}
     for name, (source, replaces, design) in KERNELS.items():
@@ -1163,10 +1510,17 @@ def main() -> None:
                    "bound_by": k2["bound_by"], "roofline_share": k2["bound_ms"] / k2["ms"],
                    "max_abs_err": k2["max_abs_err"], "tol": k2["tol"],
                    "grad_rel_err": worst2["grad_rel_err"], "grad_tol": GRAD_TOL},
+            "c6": {**{run: {key: kern_c6["serve"][run][name][key]
+                            for key in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                                        "bound_by", "max_abs_err", "tol")}
+                      for run in kern_c6["serve"]},
+                   "grad_rel_err": max(c["grad_rel_err"] for c in kern_c6["grad_checks"][name]),
+                   "grad_tol": GRAD_TOL, "gate": kern_c6["gate"]},
         })
     say(json.dumps({"main_path": speed, "quality": quality, "training": train,
                     "c2_serving": speed_c2, "c2_quality": quality_c2, "c2_training": train_c2,
-                    "long_form": long_form, "card": card,
+                    "long_form": long_form, "c6_serving": serve_c6, "c6_training": train_c6,
+                    "card": card,
                     "total_s": time.perf_counter() - t_start}))
     say(card)
     say(json.dumps({"kernels": record}))
