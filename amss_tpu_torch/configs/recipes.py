@@ -1,9 +1,12 @@
 """Recipes of the ported paths, copies of ``amss_tpu/configs/recipes.py``:
-c1, c5, c2_pretrain and c2 (STFT 256/64 or the adaptive front of 256 filters
-of 256 taps, stride 64, pool 2; a 2×300 BLSTM with E = 20), and c6 (TasNet:
-the adaptive front of 256 filters of 32 taps, stride 16, pool 1; a TCN of 3
-repeats of 8 blocks, bottleneck 128, expansion 2).  Two speakers, batch 8 of
-16384 samples.  Keyword overrides go to ``TrainConfig``."""
+c1, c5, c2_pretrain, c2, c3 (L41) and c4 (Chimera, three speakers) (STFT
+256/64 or the adaptive front of 256 filters of 256 taps, stride 64, pool 2;
+a 2×300 BLSTM with E = 20), c6 (TasNet: the adaptive front of 256 filters of
+32 taps, stride 16, pool 1; a TCN of 3 repeats of 8 blocks, bottleneck 128,
+expansion 2) and c7 (c6's front and a causal TCN of 2 repeats of 8 blocks
+after the cumulative norm, served in chunks by ``infer/realtime.py``).  Two
+speakers unless named, batch 8 of 16384 samples.  Keyword overrides go to
+``TrainConfig``."""
 
 from __future__ import annotations
 
@@ -53,6 +56,28 @@ def c2_adapt_dpcl(pretrained_front: str | None = None, **over) -> RecipeConfig:
     )
 
 
+def c3_l41(n_train_speakers: int, **over) -> RecipeConfig:
+    """Config 3: L41, BLSTM embeddings against a learned centroid per
+    training speaker; enrolled speakers are masked without clustering."""
+    return RecipeConfig(
+        name="c3_l41",
+        model=ModelConfig(kind="l41", front=_STFT, sep=_SEP, nb_speakers=2,
+                          n_train_speakers=n_train_speakers),
+        train=TrainConfig(**{"batch_size": 8, "chunk_samples": 16384, **over}),
+    )
+
+
+def c4_chimera_3mix(**over) -> RecipeConfig:
+    """Config 4: Chimera, deep-clustering and mask-inference heads on one
+    BLSTM, three speakers."""
+    return RecipeConfig(
+        name="c4_chimera_3mix",
+        model=ModelConfig(kind="chimera", front=_STFT, sep=_SEP, nb_speakers=3,
+                          chimera_alpha=0.5),
+        train=TrainConfig(**{"batch_size": 8, "chunk_samples": 16384, **over}),
+    )
+
+
 def c5_streaming(**over) -> RecipeConfig:
     """Config 5: the model of the bucketed serving path (trains as c1)."""
     return RecipeConfig(
@@ -76,4 +101,22 @@ def c6_tasnet(**over) -> RecipeConfig:
         ),
         train=TrainConfig(**{"batch_size": 8, "chunk_samples": 16384, "lr": 1e-3,
                              "lr_schedule": "cosine", **over}),
+    )
+
+
+def c7_realtime(**over) -> RecipeConfig:
+    """Causal low-latency TasNet: a causal TCN after the cumulative norm,
+    separable in fixed-size chunks with the offline result
+    (``infer/realtime.py``); algorithmic latency chunk + (filter_len - stride)
+    samples."""
+    return RecipeConfig(
+        name="c7_realtime",
+        model=ModelConfig(
+            kind="tasnet",
+            front=FrontConfig(kind="adapt", n_filters=256, filter_len=32, stride=16, pool=1),
+            sep=SeparatorConfig(hidden=128, embed_dim=20, trunk="tcn", blocks=8, repeats=2,
+                                causal=True, feature_norm="cumulative"),
+            nb_speakers=2,
+        ),
+        train=TrainConfig(**{"batch_size": 8, "chunk_samples": 16384, "lr": 1e-3, **over}),
     )

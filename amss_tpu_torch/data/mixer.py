@@ -98,10 +98,10 @@ class Mixer:
         ids = plan.speaker_ids.ravel()
         starts = plan.starts.astype(np.int64).ravel()
         gains = plan.gains.ravel()
-        shards = [self.store.waveform(s) for s in self.store.speakers]
+        shards = {i: self.store.waveform(self.store.speakers[i]) for i in set(ids.tolist())}
         flat = np.empty((batch_size * self.s, self.t), np.float32)
         for k in range(batch_size * self.s):
-            flat[k] = gains[k] * _chunk_wrap(shards[ids[k]], int(starts[k]), self.t)
+            flat[k] = gains[k] * _chunk_wrap(shards[int(ids[k])], int(starts[k]), self.t)
         return Batch(sources=flat.reshape(batch_size, self.s, self.t),
                      speaker_ids=plan.speaker_ids, gains=plan.gains)
 

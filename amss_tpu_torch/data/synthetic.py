@@ -105,6 +105,36 @@ def synth_speaker_wave_v2(
     return (0.5 * out).astype(np.float32)
 
 
+class SyntheticStore:
+    """The corpus ``make_synthetic_corpus`` writes, held in memory and
+    synthesised a speaker at a time on first use: the speaker names, lengths
+    and (normalised) waveforms, for a ``Mixer`` that draws from a few speakers
+    of a large corpus without writing it.
+
+    version 1: stationary harmonic combs; version 2: speech-like."""
+
+    def __init__(self, n_speakers: int, seconds_per_speaker: float,
+                 sample_rate: int = SAMPLE_RATE, seed: int = 0, version: int = 1):
+        self.sample_rate = sample_rate
+        self.speakers = [f"spk{s:03d}" for s in range(n_speakers)]
+        self._n = int(seconds_per_speaker * sample_rate)
+        self._seed = seed
+        self._gen = synth_speaker_wave if version == 1 else synth_speaker_wave_v2
+        self._cache: dict[str, np.ndarray] = {}
+
+    def waveform(self, speaker_id: str) -> np.ndarray:
+        if speaker_id not in self._cache:
+            idx = self.speakers.index(speaker_id)
+            wave = np.asarray(self._gen(self._seed * 10_000 + idx, self._n, self.sample_rate),
+                              np.float32)
+            peak = np.abs(wave).max()
+            self._cache[speaker_id] = 0.5 * wave / peak if peak > 0 else wave
+        return self._cache[speaker_id]
+
+    def n_samples(self, speaker_id: str) -> int:
+        return self._n
+
+
 def make_synthetic_corpus(
     root: str,
     n_speakers: int = 12,
@@ -113,13 +143,11 @@ def make_synthetic_corpus(
     seed: int = 0,
     version: int = 1,
 ) -> SpeakerStore:
-    """Write a synthetic corpus into a ``SpeakerStore`` directory and open it.
-
-    version 1: stationary harmonic combs; version 2: speech-like."""
-    gen = synth_speaker_wave if version == 1 else synth_speaker_wave_v2
+    """Write ``SyntheticStore``'s corpus into a ``SpeakerStore`` directory and
+    open it."""
+    synth = SyntheticStore(n_speakers, seconds_per_speaker, sample_rate, seed, version)
     store = SpeakerStore.create(root, sample_rate=sample_rate)
-    n = int(seconds_per_speaker * sample_rate)
-    for s in range(n_speakers):
-        store.add_speaker(f"spk{s:03d}", gen(seed * 10_000 + s, n, sample_rate))
+    for name in synth.speakers:
+        store.add_speaker(name, synth.waveform(name), normalize=False)
     store.finalize()
     return store

@@ -3,9 +3,9 @@ the front, the normalised trunk, the training targets, and mask application.
 
 The port has two trunks: the BLSTM (float32) and the TCN (float32, or bf16
 operands in its dense products, ``compute_dtype="bfloat16"``), each after the
-global (instance) or per-channel feature norm.  Still raising, each naming
-its ROADMAP item: the DPRNN and DPT trunks (item 19), the cumulative norm
-(item 16), and the BLSTM in bfloat16.  The JAX package's train-time
+global (instance), per-channel or cumulative (causal) feature norm.  Still
+raising, each naming its ROADMAP item: the DPRNN and DPT trunks (item 19),
+and the BLSTM in bfloat16.  The JAX package's train-time
 corruptions (noise, reverberation, dropped sources) are drawn from a JAX
 key; here they raise until ROADMAP item 20 ports them.
 """
@@ -19,9 +19,11 @@ from amss_tpu_torch.models.blstm import BLSTM
 from amss_tpu_torch.models.front import (
     bin_weights,
     channel_norm,
+    cumulative_norm,
     ideal_binary_mask,
     instance_norm,
     make_front,
+    psa_targets,
 )
 from amss_tpu_torch.models.tcn import TCN, tcn_stack
 from amss_tpu_torch.utils.config import ModelConfig
@@ -46,9 +48,6 @@ class SeparatorBase(nn.Module):
             raise NotImplementedError(
                 f"the BLSTM trunk in {sep.compute_dtype} is not ported yet; "
                 "the port runs it in float32")
-        if sep.feature_norm == "cumulative":
-            raise NotImplementedError(
-                "feature_norm 'cumulative' is not ported yet: ROADMAP item 16")
         self.cfg = cfg
         self.front = make_front(cfg.front)
         if sep.trunk == "tcn":
@@ -76,13 +75,24 @@ class SeparatorBase(nn.Module):
               training: bool = False) -> torch.Tensor:
         """features [B, T', F] -> [B, T', trunk_dim]."""
         sep = self.cfg.sep
-        norm = channel_norm if sep.feature_norm == "channel" else instance_norm
-        h = norm(feats, frame_mask)
+        if sep.feature_norm == "cumulative":
+            h, _ = cumulative_norm(feats, frame_mask)
+        elif sep.feature_norm == "channel":
+            h = channel_norm(feats, frame_mask)
+        else:
+            h = instance_norm(feats, frame_mask)
         if sep.trunk == "tcn":
             return tcn_stack(self.tcn, h, mask=frame_mask, blocks_per_repeat=sep.blocks,
                              compute_dtype=self.compute_dtype, remat=sep.remat,
                              dropout_rate=sep.dropout, training=training, causal=sep.causal)
         return self.blstm(h, frame_mask)
+
+    def check_no_blstm_dropout(self, training: bool) -> None:
+        """The BLSTM heads' training-time dropout is not ported: raise."""
+        if training and self.cfg.sep.dropout > 0.0:
+            raise NotImplementedError(
+                f"sep.dropout={self.cfg.sep.dropout}: training-time dropout is not "
+                "ported yet; it comes with the first recipe that uses it")
 
     def _check_no_corruption(self) -> None:
         c = self.cfg
@@ -116,6 +126,14 @@ class SeparatorBase(nn.Module):
         y = ideal_binary_mask(src_codes)
         w = bin_weights(codes, self.cfg.weight_kind, self.cfg.vad_threshold_db)
         return mix, codes, aux, src_codes, y, w, src_aux
+
+    def mi_targets(self, codes, aux, src_codes, src_aux) -> torch.Tensor:
+        """Regression targets of a mask-inference loss: the source magnitudes
+        (``loss_variant`` "msa"), or the truncated phase-sensitive targets
+        ("psa") where the front carries the phase."""
+        if self.cfg.loss_variant == "psa" and "cos" in aux:
+            return psa_targets(codes, aux, src_codes, src_aux)
+        return src_codes
 
     def loss_from_batch(self, batch: dict, training: bool = False):
         """The trainer's entry point: ``(loss, metrics)`` from a batch holding

@@ -60,10 +60,7 @@ class DPCLModel(SeparatorBase):
         """Training objective from the source chunks [B, S, T], mixed on the
         device: the DPCL loss, plus ``recon_weight`` times the mixture's
         reconstruction error when that is set."""
-        if training and self.cfg.sep.dropout > 0.0:
-            raise NotImplementedError(
-                f"sep.dropout={self.cfg.sep.dropout}: training-time dropout is not "
-                "ported yet; it comes with the first recipe that uses it")
+        self.check_no_blstm_dropout(training)
         mix, codes, aux, _, y, w, _ = self.encode_mix_and_sources(sources, training)
         v = self.embed(self.front.features(codes))
         l_dc = dpcl_loss(v, y, w)

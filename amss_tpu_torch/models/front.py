@@ -1,4 +1,4 @@
-"""The STFT front, the feature norms and the mask helpers
+"""The STFT front, the feature norms and the mask and target helpers
 (``amss_tpu/models/front.py``); ``make_front`` also builds the adaptive front
 of ``models/adapt.py``.
 
@@ -143,3 +143,91 @@ def channel_norm(
 def _one_hot_last(idx: torch.Tensor, depth: int, dtype) -> torch.Tensor:
     iota = torch.arange(depth, dtype=idx.dtype, device=idx.device)
     return (idx[..., None] == iota).to(dtype)
+
+
+def psa_targets(mix_codes: torch.Tensor, mix_aux: dict, src_codes: torch.Tensor,
+                src_aux: dict) -> torch.Tensor:
+    """Truncated phase-sensitive targets ``|S_s|·cos(φ_s − φ_mix)`` clipped to
+    ``[0, |X|]``, from the STFT front's unit phases ``{"cos", "sin"}``.
+    mix_codes [B, T', F], src_codes [B, S, T', F] -> [B, S, T', F]."""
+    cosd = src_aux["cos"] * mix_aux["cos"][:, None] + src_aux["sin"] * mix_aux["sin"][:, None]
+    t = src_codes * cosd
+    return torch.minimum(torch.clamp(t, min=0.0), mix_codes[:, None])
+
+
+def _prefix_sums(valid: torch.Tensor, x: torch.Tensor, f: int, carry) -> tuple:
+    """Running (count, sum, sum of squares) over frames of the masked features
+    ``x`` [..., T', F], each seeded with the carry's total when one is given."""
+    cnt = torch.cumsum(valid, dim=-1) * f
+    s = torch.cumsum(x.sum(dim=-1), dim=-1)
+    ss = torch.cumsum((x * x).sum(dim=-1), dim=-1)
+    if carry is None:
+        return cnt, s, ss
+    c0, s0, ss0 = (torch.as_tensor(v, dtype=x.dtype, device=x.device)[..., None]
+                   for v in carry)
+    return cnt + c0, s + s0, ss + ss0
+
+
+def _valid(feats: torch.Tensor, frame_mask: torch.Tensor | None) -> torch.Tensor:
+    if frame_mask is None:
+        return torch.ones(feats.shape[:-1], dtype=feats.dtype, device=feats.device)
+    return frame_mask.to(feats.dtype)
+
+
+def cumulative_norm(
+    feats: torch.Tensor,  # [..., T', F]
+    frame_mask: torch.Tensor | None = None,  # [..., T'] 1 = valid
+    carry: tuple | None = None,  # (count, sum, sumsq) of the frames before t = 0
+) -> tuple[torch.Tensor, tuple]:
+    """Causal utterance norm: frame t is normalised by the running mean and
+    variance of all valid frames <= t (cumulative layer norm), so nothing
+    reads the future.  ``carry`` seeds the running sums with everything that
+    already streamed past (``infer/realtime.py``).
+
+    The float32 sums stop registering new frames after about 2^24 pushes, and
+    ``ss/n - mu²`` cancels; ``cumulative_norm_welford`` is the form for
+    unbounded streams.  Returns (normalised features, (count, sum, sumsq)
+    totals over all frames)."""
+    valid = _valid(feats, frame_mask)
+    cnt, s, ss = _prefix_sums(valid, feats * valid[..., None], feats.shape[-1], carry)
+    denom = torch.clamp(cnt, min=1.0)
+    mu = s / denom
+    var = torch.clamp(ss / denom - mu * mu, min=0.0)
+    out = (feats - mu[..., None]) * (1.0 / torch.sqrt(var[..., None] + 1e-5))
+    if frame_mask is not None:
+        out = out * valid[..., None]
+    return out, (cnt[..., -1], s[..., -1], ss[..., -1])
+
+
+def cumulative_norm_welford(
+    feats: torch.Tensor,  # [..., T', F]
+    frame_mask: torch.Tensor | None = None,  # [..., T'] 1 = valid
+    carry: tuple | None = None,  # (count, mean, M2) of the frames before t = 0
+) -> tuple[torch.Tensor, tuple]:
+    """``cumulative_norm`` with a (count, mean, M2) carry merged by Chan's
+    parallel Welford formula: no large-sum cancellation, so the carry stays
+    accurate over unbounded streams.  Within one call the prefix statistics
+    come from sums; only the merge with the carry uses the stable form.  It
+    agrees with ``cumulative_norm`` to rounding, not bit for bit."""
+    f = feats.shape[-1]
+    valid = _valid(feats, frame_mask)
+    cnt, s, ss = _prefix_sums(valid, feats * valid[..., None], f, None)
+    d_loc = torch.clamp(cnt, min=1.0)
+    mu_loc = s / d_loc
+    m2_loc = torch.clamp(ss - cnt * mu_loc * mu_loc, min=0.0)
+    if carry is None:
+        n0 = torch.zeros(feats.shape[:-2], dtype=feats.dtype, device=feats.device)
+        mu0, m20 = torch.zeros_like(n0), torch.zeros_like(n0)
+    else:
+        n0, mu0, m20 = carry
+    n0_, mu0_, m20_ = n0[..., None], mu0[..., None], m20[..., None]
+    n = n0_ + cnt
+    dn = torch.clamp(n, min=1.0)
+    delta = mu_loc - mu0_
+    mu = mu0_ + delta * cnt / dn
+    m2 = m20_ + m2_loc + delta * delta * n0_ * cnt / dn
+    var = torch.clamp(m2 / dn, min=0.0)
+    out = (feats - mu[..., None]) * (1.0 / torch.sqrt(var[..., None] + 1e-5))
+    if frame_mask is not None:
+        out = out * valid[..., None]
+    return out, (n[..., -1], mu[..., -1], m2[..., -1])

@@ -1,5 +1,5 @@
-"""The temporal convolutional trunk (``amss_tpu/models/tcn.py``), offline:
-R repeats of X blocks with dilations 1, 2, 4, ... 2^(X-1), each
+"""The temporal convolutional trunk (``amss_tpu/models/tcn.py``): R repeats
+of X blocks with dilations 1, 2, 4, ... 2^(X-1), each
 
     1x1 conv (bottleneck -> H) -> PReLU -> layer norm ->
     depthwise dilated conv (kernel P) -> PReLU -> layer norm ->
@@ -16,9 +16,13 @@ zero padding: a padded row of a bucket gives the unpadded row's result.
 
 The parameter names are the JAX package's (``in_proj``, ``blocks.<i>.{pw_in,
 a1, ln1, dw, a2, ln2, pw_res, pw_skip}``, ``out_alpha``); a dense's ``w [in,
-out]`` is its ``nn.Linear``'s ``weightᵀ``.  The streaming form
-(``tcn_stack_streaming``) comes with the causal realtime path, ROADMAP
-item 16.
+out]`` is its ``nn.Linear``'s ``weightᵀ``.
+
+The streaming form (``tcn_stack_streaming``, for ``infer/realtime.py``) runs
+the causal stack over new frames only, each block carrying the last
+``(P-1)·dilation`` inputs of its depthwise conv.  It runs the same
+multiply-adds as the causal ``tcn_stack``: the carried inputs stand where the
+offline conv reads its left zero padding, so zero state is that padding.
 """
 
 from __future__ import annotations
@@ -118,12 +122,34 @@ def _depthwise_dilated(w: torch.Tensor, x: torch.Tensor, dilation: int,
     return out
 
 
+def _depthwise_dilated_streaming(w: torch.Tensor, ctx: torch.Tensor,
+                                 dilation: int) -> torch.Tensor:
+    """Valid-mode causal depthwise conv: ctx ``[B, (P-1)·d + T, C]`` ->
+    ``[B, T, C]``, the multiply-adds of ``_depthwise_dilated(causal=True)``
+    with the carried prefix of ctx in place of the zero padding."""
+    p = w.shape[0]
+    t = ctx.shape[1] - (p - 1) * dilation
+    out = w[0] * ctx[:, :t]
+    for i in range(1, p):
+        out = out + w[i] * ctx[:, i * dilation : i * dilation + t]
+    return out
+
+
 def _block(bp: TCNBlock, h: torch.Tensor, m: torch.Tensor | None, dil: int,
            compute_dtype: torch.dtype, causal: bool, dropout_rate: float,
-           training: bool) -> tuple[torch.Tensor, torch.Tensor]:
+           training: bool, state: torch.Tensor | None = None):
+    """One block -> (h', skip), or (h', skip, state') when ``state`` (the
+    conv's carried inputs, streaming) is given."""
     u = prelu(bp.a1, dense(bp.pw_in, h, compute_dtype))
     u = layer_norm(bp.ln1, u)
-    v = _depthwise_dilated(bp.dw, u if m is None else u * m, dil, causal)
+    if m is not None:
+        u = u * m
+    if state is None:
+        v = _depthwise_dilated(bp.dw, u, dil, causal)
+    else:
+        ctx = torch.cat([state, u], dim=1)
+        state = ctx[:, ctx.shape[1] - state.shape[1]:]
+        v = _depthwise_dilated_streaming(bp.dw, ctx, dil)
     v = prelu(bp.a2, v)
     v = layer_norm(bp.ln2, v)
     res = dropout(dense(bp.pw_res, v, compute_dtype), dropout_rate, training)
@@ -132,7 +158,7 @@ def _block(bp: TCNBlock, h: torch.Tensor, m: torch.Tensor | None, dil: int,
     if m is not None:  # the next block's dilated conv must read exact zeros
         hn = hn * m
         skip = skip * m
-    return hn, skip
+    return (hn, skip) if state is None else (hn, skip, state)
 
 
 def tcn_stack(
@@ -166,3 +192,31 @@ def tcn_stack(
         skip_sum = skip_sum + skip
     out = prelu(tcn.out_alpha, skip_sum)
     return out if m is None else out * m
+
+
+def tcn_stack_streaming(
+    tcn: TCN,
+    x: torch.Tensor,  # [B, T_new, F] the new frames only
+    states: list[torch.Tensor],  # per block [B, (P-1)·d, H], its conv's past inputs
+    mask: torch.Tensor | None = None,  # [B, T_new] 1 = valid (stream start)
+    blocks_per_repeat: int | None = None,
+    compute_dtype: torch.dtype = torch.float32,
+) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """The causal TCN over new frames only, carrying each block's conv state:
+    -> (``[B, T_new, bottleneck]``, new states).  From zero states it computes
+    what ``tcn_stack(causal=True)`` computes for the same frames of the whole
+    sequence, with O(T_new) work."""
+    xpr = blocks_per_repeat or len(tcn.blocks)
+    m = None if mask is None else mask[..., None].to(x.dtype)
+    h = dense(tcn.in_proj, x, compute_dtype)
+    if m is not None:
+        h = h * m
+    skip_sum = torch.zeros_like(h)
+    new_states = []
+    for i, bp in enumerate(tcn.blocks):
+        h, skip, st = _block(bp, h, m, 2 ** (i % xpr), compute_dtype, True, 0.0, False,
+                             states[i])
+        new_states.append(st)
+        skip_sum = skip_sum + skip
+    out = prelu(tcn.out_alpha, skip_sum)
+    return (out if m is None else out * m), new_states

@@ -1,22 +1,27 @@
-"""Where one batch call of a serving path, and one train step, spend their
-device time.
+"""Where one batch call of a serving path, one realtime push, and one train
+step spend their device time.
 
-    python3 -m amss_tpu_torch.tools.stage_times [--recipe c1|c2|c6]           # serving
-    python3 -m amss_tpu_torch.tools.stage_times [--recipe c1|c2|c6] --train   # one step
+    python3 -m amss_tpu_torch.tools.stage_times [--recipe c1|c2|c3|c4|c6|c7]          # serving
+    python3 -m amss_tpu_torch.tools.stage_times [--recipe c1|c2|c3|c4|c6|c7] --train  # one step
 
 Serving runs the stages of ``separate`` one by one on the card, on the
-committed weights (``checkpoints/c1_dpcl``, ``checkpoints/c2_adapt`` for c2,
-``checkpoints/c6_flagship`` for c6) and the main path's batch (8 utterances of
-8 s).  For c6 the TCN is also taken apart: its input product, all its blocks,
-and one block's stages (the three dense products, the PReLUs and layer norms,
-the depthwise conv, the residual).  Training runs the stages of one step of
-the recipe (c1, c2 with its reconstruction term, or c6) at full width
-(weights drawn from seed 0, a random batch): the front and the targets, the
-features, the trunk's forward, the head, the loss (and c2's decode through
-B2, c6's masking and decode), the BLSTM's backward alone, the whole backward,
-and the optimiser.  Each prints one JSON line with the median milliseconds of
-each stage over 10 calls (CUDA events around it, synchronised alone) beside
-the median of the whole call or step.  Needs a CUDA device.
+committed weights (``checkpoints/c1_dpcl``, ``c2_adapt`` for c2, ``c3_l41``
+for c3, blind, ``c6_flagship`` for c6, ``c7_causal`` for c7; c4 has no
+checkpoint, so its weights are drawn from seed 0) and the main path's batch
+(8 utterances of 8 s).  For c6 and c7 the TCN is also taken apart: its input
+product, all its blocks, and one block's stages (the three dense products,
+the PReLUs and layer norms, the depthwise conv, the residual).  For c7 a
+``RealtimeSeparator`` push (chunks of 4096 and 1024 samples, 1 and 16
+streams) is taken apart too, into the stage methods the push runs: the
+masks, encode, smoothing with the cumulative norm, the streaming TCN, the
+mask head, and the decode with the overlap-add tail, beside the whole push
+queued alone and with its fetch.  Training runs the stages of
+one step of the recipe at full width (weights drawn from seed 0, a random
+batch): the front and the targets, the features, the trunk's forward, the
+head and loss, the backward and the optimiser.  Each prints one JSON line
+with the median milliseconds of each stage over 10 calls (CUDA events around
+it, synchronised alone) beside the median of the whole call or step.  Needs
+a CUDA device.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ SERVING = {
                         "channel_norm_blstm", "dense_tanh_l2", "vad_kmeans", "soft_masks",
                         "mask_unpool_decode_B2")),
 }
-C6_RUN = "c6_flagship"
+TASNET_RUNS = {"c6": "c6_flagship", "c7": "c7_causal"}
 
 
 def _timed(fn, reps: int):
@@ -103,15 +108,101 @@ def _front_name(cfg) -> str:
 
 
 @torch.no_grad()
-def tasnet_stage_times(batch: int, seconds: int, reps: int) -> dict:
-    """The stages of ``TasNetModel.separate`` on the flagship, the TCN taken
-    apart into its input product, its blocks and one block's stages."""
+def heads_stage_times(recipe: str, batch: int, seconds: int, reps: int) -> dict:
+    """The stages of a BLSTM head's ``separate``: c3 blind (k-means, hard
+    masks) on ``checkpoints/c3_l41``, c4 (the MI head's softmax masks, S = 3)
+    with weights drawn from seed 0."""
+    from amss_tpu_torch.configs.recipes import c4_chimera_3mix
+    from amss_tpu_torch.models.front import _one_hot_last
+    from amss_tpu_torch.train.engine import make_model
+
+    if recipe == "c3":
+        model = load_model_from_run(os.path.join(REPO, "checkpoints", "c3_l41"))
+    else:
+        model = make_model(c4_chimera_3mix().model)
+        model.init_parameters(torch.Generator().manual_seed(0))
+        model = model.cuda().eval()
+    cfg = model.cfg
+    t = seconds * 8000
+    rng = np.random.default_rng(0)
+    mix = torch.from_numpy((rng.standard_normal((batch, t)) * 0.3).astype(np.float32)).cuda()
+    mask = torch.ones((batch, cfg.front.frames_for(t)), device="cuda")
+    k, e = cfg.nb_speakers, cfg.sep.embed_dim
+    times = {}
+
+    def timed(name, fn):
+        out, times[name] = _timed(fn, reps)
+        return out
+
+    codes, aux = timed("stft_encode_B1", lambda: model.front.encode(mix))
+    feats = timed("log_features", lambda: model.front.features(codes))
+    h = timed("norm_blstm", lambda: model.trunk(feats, mask))
+    if recipe == "c3":
+        v = timed("dense_tanh", lambda: torch.tanh(model.proj(h).reshape(*feats.shape, e)))
+        flat_v = v.reshape(batch, -1, e)
+
+        def cluster():
+            w = vad_weights(codes, cfg.vad_threshold_db) * mask[..., None]
+            return kmeans(flat_v, k=k, iters=10, weights=w.reshape(batch, -1))[1]
+
+        assign = timed("vad_kmeans", cluster)
+        masks = timed("hard_masks", lambda: _one_hot_last(assign, k, codes.dtype).reshape(
+            *codes.shape, k))
+    else:
+        masks = timed("mask_head_softmax", lambda: torch.softmax(
+            model.proj_mask(h).reshape(*feats.shape, k), dim=-1))
+    timed("mask_istft_B2", lambda: model.apply_masks_and_decode(codes, aux, masks, t))
+    _, whole = _timed(lambda: model.separate(mix, frame_mask=mask), reps)
+    return {"device": torch.cuda.get_device_name(0), "recipe": recipe, "batch": batch,
+            "samples": t, "speakers": k, "stage_ms": times,
+            "sum_of_stages_ms": sum(times.values()), "separate_ms": whole}
+
+
+@torch.no_grad()
+def realtime_push_times(model, chunk: int, streams: int, reps: int) -> dict:
+    """One ``RealtimeSeparator`` push taken apart into the stage methods its
+    ``_step`` runs, its state warmed by a few pushes first; each stage runs on
+    the state the push would see, and none of them changes it."""
+    from amss_tpu_torch.infer.realtime import RealtimeSeparator
+
+    rt = RealtimeSeparator(model, chunk_samples=chunk, n_streams=streams)
+    rng = np.random.default_rng(0)
+    wave = (rng.standard_normal((streams, chunk)) * 0.3).astype(np.float32)
+    for _ in range(3):
+        rt.push(wave)
+    chunk_t = torch.from_numpy(wave).cuda()
+    ends = rt._end_frames(None)
+    times = {}
+
+    def timed(name, fn):
+        out, times[name] = _timed(fn, reps)
+        return out
+
+    valid, dec_valid = timed("masks", lambda: rt._masks(ends))
+    _, codes, aux = timed("encode_plain_abs_sign", lambda: rt._encode(chunk_t, valid))
+    _, normed, _ = timed("smoothing_log_cumulative_norm",
+                         lambda: rt._features_and_norm(codes, valid))
+    h, _ = timed("tcn_streaming", lambda: rt._trunk(normed, valid))
+    m = timed("mask_head_sigmoid", lambda: rt._head(h))
+    timed("decode_plain_ola_tail", lambda: rt._decode(codes, aux, m, dec_valid))
+    _, queued = _timed(lambda: rt._dispatch(wave, None), reps)
+    _, pushed = _timed(lambda: rt.push(wave), reps)
+    return {"chunk": chunk, "streams": streams, "frames": rt.hop, "stage_ms": times,
+            "sum_of_stages_ms": sum(times.values()), "push_queued_ms": queued,
+            "push_with_fetch_ms": pushed}
+
+
+@torch.no_grad()
+def tasnet_stage_times(recipe: str, batch: int, seconds: int, reps: int) -> dict:
+    """The stages of ``TasNetModel.separate`` on c6_flagship or c7_causal, the
+    TCN taken apart into its input product, its blocks and one block's
+    stages; for c7 also a realtime push, taken apart."""
     from amss_tpu_torch.models.blstm import dense
     from amss_tpu_torch.models.dprnn import layer_norm
-    from amss_tpu_torch.models.front import instance_norm
+    from amss_tpu_torch.models.front import cumulative_norm, instance_norm
     from amss_tpu_torch.models.tcn import _depthwise_dilated, prelu, tcn_stack
 
-    model = load_model_from_run(os.path.join(REPO, "checkpoints", C6_RUN))
+    model = load_model_from_run(os.path.join(REPO, "checkpoints", TASNET_RUNS[recipe]))
     cfg, cd = model.cfg, model.compute_dtype
     t = seconds * 8000
     rng = np.random.default_rng(0)
@@ -126,8 +217,12 @@ def tasnet_stage_times(batch: int, seconds: int, reps: int) -> dict:
 
     codes, aux = timed(f"adapt_encode_{kern}_abs_sign", lambda: model.front.encode(mix))
     feats = timed("smooth_log_features", lambda: model.front.features(codes))
-    h = timed("instance_norm", lambda: instance_norm(feats, mask))
-    trunk = timed("tcn_stack", lambda: tcn_stack(model.tcn, h, mask, cfg.sep.blocks, cd))
+    if cfg.sep.feature_norm == "cumulative":
+        h = timed("cumulative_norm", lambda: cumulative_norm(feats, mask)[0])
+    else:
+        h = timed("instance_norm", lambda: instance_norm(feats, mask))
+    trunk = timed("tcn_stack", lambda: tcn_stack(model.tcn, h, mask, cfg.sep.blocks, cd,
+                                                 causal=cfg.sep.causal))
     masks = timed("mask_head_sigmoid", lambda: torch.sigmoid(
         dense(model.proj_mask, trunk, cd).reshape(*feats.shape, cfg.nb_speakers)))
     dec = "B2" if kern == "B1" else "plain"
@@ -145,28 +240,33 @@ def tasnet_stage_times(batch: int, seconds: int, reps: int) -> dict:
     x = part("in_proj_dense_mask", lambda: dense(model.tcn.in_proj, h, cd) * m)
     u = part("block_pw_in_dense", lambda: dense(bp.pw_in, x, cd))
     u = part("block_prelu_layer_norm_1", lambda: layer_norm(bp.ln1, prelu(bp.a1, u)))
-    v = part("block_mask_depthwise_conv", lambda: _depthwise_dilated(bp.dw, u * m, 1))
+    v = part("block_mask_depthwise_conv", lambda: _depthwise_dilated(bp.dw, u * m, 1,
+                                                                     cfg.sep.causal))
     v = part("block_prelu_layer_norm_2", lambda: layer_norm(bp.ln2, prelu(bp.a2, v)))
     res, skip = part("block_pw_res_pw_skip_dense",
                      lambda: (dense(bp.pw_res, v, cd), dense(bp.pw_skip, v, cd)))
     skip_sum = torch.zeros_like(x)
     part("block_residual_mask_skip_sum", lambda: ((x + res) * m, skip_sum + skip * m))
-    return {"device": torch.cuda.get_device_name(0), "recipe": "c6", "batch": batch,
-            "samples": t, "frames": int(codes.shape[-2]), "compute_dtype": cfg.sep.compute_dtype,
-            "stage_ms": times, "sum_of_stages_ms": sum(times.values()), "separate_ms": whole,
-            "tcn_parts_ms": parts, "blocks": len(model.tcn.blocks)}
+    out = {"device": torch.cuda.get_device_name(0), "recipe": recipe, "batch": batch,
+           "samples": t, "frames": int(codes.shape[-2]), "compute_dtype": cfg.sep.compute_dtype,
+           "stage_ms": times, "sum_of_stages_ms": sum(times.values()), "separate_ms": whole,
+           "tcn_parts_ms": parts, "blocks": len(model.tcn.blocks)}
+    if recipe == "c7":
+        out["realtime_push"] = [realtime_push_times(model, chunk, streams, reps)
+                                for chunk in (4096, 1024) for streams in (1, 16)]
+    return out
 
 
-def tasnet_train_stage_times(reps: int) -> dict:
-    """The stages of one c6 train step at the recipe's full width."""
-    from amss_tpu_torch.configs.recipes import c6_tasnet
+def tasnet_train_stage_times(recipe_name: str, reps: int) -> dict:
+    """The stages of one c6 or c7 train step at the recipe's full width."""
+    from amss_tpu_torch.configs.recipes import c6_tasnet, c7_realtime
     from amss_tpu_torch.models.blstm import dense
     from amss_tpu_torch.ops.metrics import pit_si_sdr
     from amss_tpu_torch.train.engine import make_model
     from amss_tpu_torch.train.optim import Adam, make_schedule
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the default, stated
-    recipe = c6_tasnet()
+    recipe = {"c6": c6_tasnet, "c7": c7_realtime}[recipe_name]()
     t = recipe.train
     model = make_model(recipe.model)
     model.init_parameters(torch.Generator().manual_seed(t.seed))
@@ -205,9 +305,55 @@ def tasnet_train_stage_times(reps: int) -> dict:
         opt.step([torch.zeros_like(p) if x is None else x for x, p in zip(g, params)])
 
     _, whole = _timed(step, reps)
-    return {"device": torch.cuda.get_device_name(0), "recipe": "c6",
+    return {"device": torch.cuda.get_device_name(0), "recipe": recipe_name,
             "batch": t.batch_size, "samples": t.chunk_samples, "stage_ms": times,
             "sum_of_stages_ms": sum(times.values()), "train_step_ms": whole}
+
+
+def heads_train_stage_times(recipe_name: str, reps: int) -> dict:
+    """The stages of one c3 (L41) or c4 (Chimera, S = 3) train step at the
+    recipe's full width; the head and loss are the whole forward less the
+    stages before them."""
+    from amss_tpu_torch.configs.recipes import c3_l41, c4_chimera_3mix
+    from amss_tpu_torch.train.engine import make_model
+    from amss_tpu_torch.train.optim import Adam, make_schedule
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the default, stated
+    recipe = c3_l41(100) if recipe_name == "c3" else c4_chimera_3mix()
+    t, s = recipe.train, recipe.model.nb_speakers
+    model = make_model(recipe.model)
+    model.init_parameters(torch.Generator().manual_seed(t.seed))
+    model = model.cuda().train()
+    params = [p for p in model.parameters() if p.requires_grad]
+    opt = Adam(params, make_schedule(t), t.grad_clip)
+    rng = np.random.default_rng(0)
+    sources = torch.from_numpy(
+        (rng.standard_normal((t.batch_size, s, t.chunk_samples)) * 0.1).astype(np.float32)).cuda()
+    batch = {"sources": sources}
+    if recipe_name == "c3":
+        batch["speaker_ids"] = torch.from_numpy(
+            rng.integers(0, 100, (t.batch_size, s)).astype(np.int32)).cuda()
+
+    times = {}
+    enc, times["mix_encode_B1x2_targets"] = _timed(
+        lambda: model.encode_mix_and_sources(sources, training=True), reps)
+    codes = enc[1]
+    feats, times["features"] = _timed(lambda: model.front.features(codes), reps)
+    _, times["norm_blstm_forward"] = _timed(lambda: model.trunk(feats), reps)
+    loss, forward = _timed(lambda: model.loss_from_batch(batch, training=True)[0], reps)
+    times["head_and_loss_forward"] = forward - sum(times.values())
+    grads, times["whole_backward"] = _timed(
+        lambda: torch.autograd.grad(loss, params, retain_graph=True), reps)
+    _, times["clip_adam"] = _timed(lambda: opt.step(list(grads)), reps)
+
+    def step():
+        loss, _ = model.loss_from_batch(batch, training=True)
+        opt.step(list(torch.autograd.grad(loss, params)))
+
+    _, whole = _timed(step, reps)
+    return {"device": torch.cuda.get_device_name(0), "recipe": recipe_name,
+            "batch": t.batch_size, "speakers": s, "samples": t.chunk_samples,
+            "stage_ms": times, "sum_of_stages_ms": sum(times.values()), "train_step_ms": whole}
 
 
 def train_stage_times(recipe_name: str, reps: int) -> dict:
@@ -261,14 +407,17 @@ def train_stage_times(recipe_name: str, reps: int) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--recipe", choices=[*sorted(SERVING), "c6"], default="c1")
+    ap.add_argument("--recipe", choices=["c1", "c2", "c3", "c4", "c6", "c7"], default="c1")
     ap.add_argument("--train", action="store_true", help="one train step instead of serving")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("stage_times needs a CUDA device")
-    if args.recipe == "c6":
-        print(json.dumps(tasnet_train_stage_times(REPS) if args.train
-                         else tasnet_stage_times(BATCH, SECONDS, REPS)))
+    if args.recipe in TASNET_RUNS:
+        print(json.dumps(tasnet_train_stage_times(args.recipe, REPS) if args.train
+                         else tasnet_stage_times(args.recipe, BATCH, SECONDS, REPS)))
+    elif args.recipe in ("c3", "c4"):
+        print(json.dumps(heads_train_stage_times(args.recipe, REPS) if args.train
+                         else heads_stage_times(args.recipe, BATCH, SECONDS, REPS)))
     elif args.train:
         print(json.dumps(train_stage_times(args.recipe, REPS)))
     else:

@@ -9,8 +9,9 @@ recipes ported are c1, c5, c2_pretrain (the filterbank autoencoder), c2,
 which restores a pretrained front and keeps it frozen for
 ``freeze_front_steps`` (its gradients are scaled by 0 before the clip, so
 Adam's moments and update stay 0 and the front's tensors stay bit for bit
-what was restored), and c6 (TasNet, whose loss encodes the mixture alone
-and scores the separated waveforms).  The host draws batches on a
+what was restored), c3 (L41, whose batches carry the speakers' global ids
+from the ``Mixer``'s plan), c4 (Chimera), and c6 and c7 (TasNet, whose loss
+encodes the mixture alone and scores the separated waveforms).  The host draws batches on a
 background thread (``data/prefetch.py``) and ships the sources as int16.
 
 A run dir is named ``<recipe>_<run id>`` with the JAX package's run id, and
@@ -41,7 +42,9 @@ from amss_tpu_torch.ckpt.checkpoint import AsyncCheckpointer, restore_checkpoint
 from amss_tpu_torch.data.mixer import Mixer
 from amss_tpu_torch.data.prefetch import Prefetcher
 from amss_tpu_torch.models.adapt import AdaptAutoencoder
+from amss_tpu_torch.models.chimera import ChimeraModel
 from amss_tpu_torch.models.dpcl import DPCLModel
+from amss_tpu_torch.models.l41 import L41Model
 from amss_tpu_torch.models.tasnet import TasNetModel
 from amss_tpu_torch.train.optim import Adam, AdamState, make_schedule
 from amss_tpu_torch.utils.config import ModelConfig, RecipeConfig, recipe_to_dict, run_id
@@ -50,12 +53,12 @@ from amss_tpu_torch.utils.logging import MetricWriter
 from amss_tpu_torch.weights import jax_tree, named_from_jax
 
 # model kind -> the slice of the port (ROADMAP A) that brings it
-_LATER = {"l41": "item 17 (L41 and Chimera)", "chimera": "item 17 (L41 and Chimera)",
-          "enhance": "item 18 (count and enhance)"}
-_MODELS = {"dpcl": DPCLModel, "adapt_ae": AdaptAutoencoder, "tasnet": TasNetModel}
+_LATER = {"enhance": "item 18 (count and enhance)"}
+_MODELS = {"dpcl": DPCLModel, "adapt_ae": AdaptAutoencoder, "tasnet": TasNetModel,
+           "l41": L41Model, "chimera": ChimeraModel}
 
 
-def make_model(cfg: ModelConfig) -> DPCLModel | AdaptAutoencoder | TasNetModel:
+def make_model(cfg: ModelConfig) -> torch.nn.Module:
     if cfg.kind in _MODELS:
         return _MODELS[cfg.kind](cfg)
     if cfg.kind in _LATER:
@@ -220,9 +223,13 @@ class Trainer:
 
     def _device_batch(self, batch) -> dict:
         """A host batch on the device: int16 through pinned memory, copied
-        without waiting on a card."""
+        without waiting on a card; an L41 batch also carries its speakers'
+        global ids [B, S]."""
+        arrays = self._host_arrays(batch)
+        if self.recipe.model.kind == "l41":
+            arrays["speaker_ids"] = batch.speaker_ids
         out = {}
-        for k, v in self._host_arrays(batch).items():
+        for k, v in arrays.items():
             t = torch.from_numpy(v)
             if self.device.type == "cuda":
                 out[k] = t.pin_memory().to(self.device, non_blocking=True)
@@ -270,13 +277,15 @@ class Trainer:
         microbatches."""
         t = self.recipe.train
         accum = max(t.accum_steps, 1)
-        sources = self._dequantize(batch)["sources"]
+        full = self._dequantize(batch)
+        mb_size = full["sources"].shape[0] // accum
         self.model.train()
         for p in self.params:
             p.grad = None
         msum: dict = {}
-        for mb in torch.split(sources, sources.shape[0] // accum):
-            loss, metrics = self.model.loss_from_batch({"sources": mb}, training=True)
+        for i in range(accum):
+            mb = {k: v[i * mb_size : (i + 1) * mb_size] for k, v in full.items()}
+            loss, metrics = self.model.loss_from_batch(mb, training=True)
             loss.backward()
             for k, v in metrics.items():
                 msum[k] = msum[k] + v.detach() if k in msum else v.detach()
@@ -360,13 +369,17 @@ class Trainer:
                 self.model.train()
 
     def valid_loss(self) -> float:
-        """The mean loss over ``valid_steps`` fixed batches of the valid split."""
+        """The mean loss over ``valid_steps`` fixed batches of the valid split.
+        L41's centroid table covers the training speakers only, so it
+        validates on them at chunk offsets training never draws (steps from
+        5,000,000 on), as the JAX package does."""
         r = self.recipe.train
+        split, offset = ("train", 5_000_000) if self.recipe.model.kind == "l41" else ("valid", 0)
         losses = []
         with self._serving_weights():
             for i in range(r.valid_steps):
                 batch = self._dequantize(
-                    self._device_batch(self.mixer.batch("valid", i, r.batch_size)))
+                    self._device_batch(self.mixer.batch(split, offset + i, r.batch_size)))
                 loss, _ = self.model.loss_from_batch(batch)
                 losses.append(float(loss))
         return float(np.mean(losses))

@@ -6,11 +6,13 @@ The JAX tree is ``{"front": front, "separator": separator}``.  The front is
 and ``{enc, dec, smooth}`` for the adaptive front, in the port's layouts;
 the autoencoder's tree has the front alone.  The separator is
 
-* deep clustering: ``{"blstm": layers, "proj": {w, b}}``, each BLSTM layer
-  ``{"fwd": {wx, wh, b}, "bwd": {...}}``, in one ``nn.LSTM``;
-* TasNet: ``{"tcn": {in_proj, blocks, out_alpha}, "proj_mask": {w, b}}``,
-  each block ``{pw_in, a1, ln1: {g, b}, dw, a2, ln2, pw_res, pw_skip}``,
-  under the same names in the port (``tcn.blocks.<i>.ln1.g``).
+* a trunk: ``{"blstm": layers}``, each BLSTM layer ``{"fwd": {wx, wh, b},
+  "bwd": {...}}``, in one ``nn.LSTM``; or ``{"tcn": {in_proj, blocks,
+  out_alpha}}``, each block ``{pw_in, a1, ln1: {g, b}, dw, a2, ln2, pw_res,
+  pw_skip}``, under the same names in the port (``tcn.blocks.<i>.ln1.g``);
+* the heads beside it, under their names: deep clustering ``proj``, L41
+  ``proj`` and ``centroids [n_train_speakers, E]``, Chimera ``proj_embed``
+  and ``proj_mask``, TasNet (c6, and c7 with ``causal=True``) ``proj_mask``.
 
 A dense ``{w [in, out], b}`` is an ``nn.Linear`` with ``weight = wᵀ``.  A
 checkpoint keys a list's entries "0", "1", ...; the port's names are those
@@ -25,12 +27,16 @@ import numpy as np
 import torch
 
 from amss_tpu_torch.ckpt.checkpoint import load_params
+from amss_tpu_torch.models.chimera import ChimeraModel
 from amss_tpu_torch.models.dpcl import DPCLModel
+from amss_tpu_torch.models.l41 import L41Model
 from amss_tpu_torch.models.tasnet import TasNetModel
 from amss_tpu_torch.utils.config import ModelConfig, recipe_from_dict
 from amss_tpu_torch.utils.device import resolve_device
 
-_MODELS = {"dpcl": DPCLModel, "tasnet": TasNetModel}
+_MODELS = {"dpcl": DPCLModel, "tasnet": TasNetModel, "l41": L41Model,
+           "chimera": ChimeraModel}
+Separator = DPCLModel | TasNetModel | L41Model | ChimeraModel
 
 
 def _t(a) -> torch.Tensor:
@@ -71,20 +77,19 @@ def _flatten(tree, prefix: str) -> dict:
 
 
 def named_from_jax(tree: dict) -> dict:
-    """The port's named tensors (``front.*``, then ``blstm.lstm.*`` and
-    ``proj.*``, or ``tcn.*`` and ``proj_mask.*``) from a JAX parameter tree,
-    ``bias_hh`` included as zeros."""
+    """The port's named tensors (``front.*``, then ``blstm.lstm.*`` or
+    ``tcn.*``, then the heads' ``proj.*``, ``centroids``, ``proj_embed.*``,
+    ``proj_mask.*``) from a JAX parameter tree, ``bias_hh`` included as
+    zeros."""
     named = {"front." + k: _t(v) for k, v in tree.get("front", {}).items()}
     sep = tree.get("separator")
     if sep is None:
         return named
-    if "blstm" in sep:
-        named.update({"blstm.lstm." + k: v for k, v in lstm_state(sep["blstm"]).items()})
-        named["proj.weight"] = _t(sep["proj"]["w"]).T
-        named["proj.bias"] = _t(sep["proj"]["b"])
-    else:
-        for key in ("tcn", "proj_mask"):
-            named.update(_flatten(sep[key], key + "."))
+    for key, sub in sep.items():
+        if key == "blstm":
+            named.update({"blstm.lstm." + k: v for k, v in lstm_state(sub).items()})
+        else:
+            named.update(_flatten(sub, key + "."))
     return named
 
 
@@ -118,12 +123,10 @@ def jax_tree(named: dict, layers: int | None = None) -> dict:
     else ``bias_ih``, over ``layers`` layers (by default as many as the names
     hold).  Without a head (the autoencoder) the tree has the front alone."""
     front = {n[len("front."):]: _np(v) for n, v in named.items() if n.startswith("front.")}
-    if "proj_mask.weight" in named:
-        sep = _unflatten({n: v for n, v in named.items()
-                          if n.startswith(("tcn.", "proj_mask."))})
-        return {"front": front, "separator": sep}
-    if "proj.weight" not in named:
-        return {"front": front}
+    sep = _unflatten({n: v for n, v in named.items()
+                      if not n.startswith(("front.", "blstm."))})
+    if not any(n.startswith("blstm.") for n in named):
+        return {"front": front, "separator": sep} if sep else {"front": front}
     if layers is None:
         layers = sum(1 for n in named if n.startswith("blstm.lstm.weight_ih_l")
                      and not n.endswith("_reverse"))
@@ -138,18 +141,18 @@ def jax_tree(named: dict, layers: int | None = None) -> dict:
             layer[direction] = {"wx": _np(named[pre + "weight_ih" + sfx].T),
                                 "wh": _np(named[pre + "weight_hh" + sfx].T), "b": _np(b)}
         blstm[str(i)] = layer
-    proj = {"w": _np(named["proj.weight"].T), "b": _np(named["proj.bias"])}
-    return {"front": front, "separator": {"blstm": blstm, "proj": proj}}
+    return {"front": front, "separator": {"blstm": blstm, **sep}}
 
 
-def params_to_jax(model: DPCLModel | TasNetModel) -> dict:
+def params_to_jax(model: Separator) -> dict:
     """The inverse of ``params_from_jax``: the model's parameters as the JAX
     package's tree of numpy arrays, in the checkpoint's layout."""
     return jax_tree(dict(model.named_parameters()))
 
 
-def params_from_jax(cfg: ModelConfig, params: dict, device=None) -> DPCLModel | TasNetModel:
-    """The model of ``cfg.kind`` (``dpcl`` or ``tasnet``) holding a JAX
+def params_from_jax(cfg: ModelConfig, params: dict, device=None) -> Separator:
+    """The model of ``cfg.kind`` (``dpcl``, ``tasnet``, ``l41`` or
+    ``chimera``) holding a JAX
     parameter tree given as numpy arrays (lists, or dicts keyed "0", "1", ...
     as a checkpoint stores them).  Each LSTM direction maps as ``weight_ih =
     wxᵀ``, ``weight_hh = whᵀ``, ``bias_ih = b``, ``bias_hh = 0``; each dense
@@ -169,7 +172,7 @@ def params_from_jax(cfg: ModelConfig, params: dict, device=None) -> DPCLModel | 
     return model.to(device).eval()
 
 
-def load_model_from_run(run_dir: str, device=None) -> DPCLModel | TasNetModel:
+def load_model_from_run(run_dir: str, device=None) -> Separator:
     """Rebuild a trained model from a run dir (config.json + best checkpoint)."""
     device = resolve_device(device)
     with open(os.path.join(run_dir, "config.json")) as f:

@@ -58,7 +58,31 @@ Phases, each printing its wall seconds:
 12. c6 training: the c6 recipe at full width (TCN of 3 x 8 blocks, batch 8
    of 16384, L32/16, float32, remat) for C6_STEPS steps with phase 5's
    checks, then one bf16 step of the flagship at its config's batch of 16 x
-   16384 from the checkpoint's weights, loss and gradients against the CPU.
+   16384 from the checkpoint's weights, loss and gradients against the CPU;
+13. c7 realtime: ``checkpoints/c7_causal`` (causal TCN of 3 x 8 blocks at
+   width 512, the cumulative norm) served offline through
+   ``StreamingSeparator`` on phase 4's mixtures, then streamed through
+   ``RealtimeSeparator`` in chunks of REALTIME_CHUNK (one stream, 16 ragged
+   streams, pipelined, ``long_stream``), each against the offline output
+   within C7_STREAM_TOL of its peak; ms per push and RTF at chunks of 4096
+   and 1024 and 1 and 16 streams; one push queued with no host sync; B1 and
+   B2 launched 0 times (the gate is closed at 32/16);
+14. c7 quality and training: c7_causal's SI-SDRi on phase 4's protocol
+   (C7_QUALITY_MIN_DB), then the c7 recipe at full width for C7_STEPS steps
+   with phase 5's checks;
+15. c3 (L41): ``checkpoints/c3_l41`` served blind through
+   ``StreamingSeparator`` as in phase 3 (B1 and B2 counted), its blind
+   quality on phase 4's protocol (C3_QUALITY_MIN_DB) and its enrolled
+   quality (``separate(mix, speaker_ids=...)``, batches of 8) on its training
+   speakers rebuilt from seeds (C3_ENROLLED_MIN_DB); then the c3 recipe at
+   full width for C3_STEPS steps with phase 5's checks;
+16. c4 (Chimera, S = 3): B2 at the three-speaker serving shape [24, 997,
+   258] against its plain version and timed; the c4 recipe at full width
+   (2x300 BLSTM, E = 20) for C4_STEPS steps with phase 5's checks, on a
+   synthetic v1 corpus of C4_SPEAKERS x TRAIN_SECONDS s; the trained state
+   served through ``StreamingSeparator`` as in phase 3 and on three-speaker
+   mixtures (B1 and B2 counted), and on the card against the port on the CPU
+   (C4_CARD_CPU_MIN_DB).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero,
@@ -180,6 +204,41 @@ C6_STEP_GRAD_TOL = 5e-3
 C6_BF16_LOSS_TOL_DB = 0.01
 C6_BF16_GRAD_TOL = 0.15  # ||g_card - g_cpu|| / ||g_cpu|| over all tensors
 C6_BF16_TENSOR_TOL = 0.4  # the same for each tensor alone
+
+# phase 13: c7_causal streamed in chunks of REALTIME_CHUNK against its offline
+# output on the card, as the largest difference over the output's peak
+C7_CAUSAL = os.path.join(REPO, "checkpoints", "c7_causal")
+REALTIME_CHUNK = 4096
+C7_STREAM_TOL = 1e-4
+REALTIME_STREAMS = 16
+REALTIME_SPEED_SECONDS = 8  # audio per stream in the ms-per-push runs
+# phase 14: c7_causal scores 8.347 dB [7.760, 8.953] on phase 4's protocol
+# through the JAX package on the CPU, and the port agrees (8.347; python
+# tests/test_torch_c7_slice.py); the gate sits at the lower end of that
+# interval.  The c7 recipe at full width, cut to C7_STEPS steps.
+C7_QUALITY_MIN_DB = 7.76
+C7_STEPS = 200
+# phase 15: c3_l41 blind scores 5.498 dB [4.144, 6.834] on phase 4's protocol,
+# and enrolled 13.061 dB [12.176, 13.952] on C3_ENROLLED_N mixtures of its
+# training speakers (the v2 corpus of 100 x 120 s from seed 1, steps from
+# 10,000,000 of the train split), both through the JAX package on the CPU,
+# and the port agrees (python tests/test_torch_c3_slice.py); each gate sits at
+# the lower end of its interval.
+C3_L41 = os.path.join(REPO, "checkpoints", "c3_l41")
+C3_QUALITY_MIN_DB = 4.14
+C3_ENROLLED_MIN_DB = 12.17
+C3_ENROLLED_N = 16
+C3_STEPS = 200
+# phase 16: the c4 recipe at full width, cut to C4_STEPS steps on a v1 corpus
+# of its own, C4_SPEAKERS x TRAIN_SECONDS s (nine valid speakers).  Phase 5's
+# 24 speakers leave three valid ones, and every three-speaker valid mixture
+# then holds the same three: there the valid loss did not fall in 200 steps
+# while the train loss did.  The trained state on the card against the port
+# on the CPU, as SI-SDR of one against the other, on two three-speaker
+# mixtures (float32 on both sides)
+C4_SPEAKERS = 60
+C4_STEPS = 200
+C4_CARD_CPU_MIN_DB = 40.0
 
 # name -> (source, the TPU kernel it replaces, its design)
 KERNELS = {
@@ -827,13 +886,13 @@ def check_checkpoint_reloads(tr, final: dict, steps: int) -> None:
     say(f"  ckpt_latest.msgpack (step {manifest['step']}) reloads bit for bit")
 
 
-def training_corpus(workdir: str):
+def training_corpus(workdir: str, n_speakers: int = TRAIN_SPEAKERS, name: str = "corpus"):
     from amss_tpu_torch.data.synthetic import make_synthetic_corpus
 
     t0 = time.perf_counter()
-    store = make_synthetic_corpus(os.path.join(workdir, "corpus"), n_speakers=TRAIN_SPEAKERS,
+    store = make_synthetic_corpus(os.path.join(workdir, name), n_speakers=n_speakers,
                                   seconds_per_speaker=TRAIN_SECONDS, seed=0, version=1)
-    say(f"  corpus {TRAIN_SPEAKERS} x {TRAIN_SECONDS:g} s: {time.perf_counter() - t0:.2f} s")
+    say(f"  corpus {n_speakers} x {TRAIN_SECONDS:g} s: {time.perf_counter() - t0:.2f} s")
     return store
 
 
@@ -1331,6 +1390,326 @@ def phase_train_c6(store, workdir: str) -> tuple[dict, dict]:
                  "c6_flagship_bf16_step": out["c6_flagship_bf16_step"]["launches"]}
 
 
+def _offline_batches(model, mixes: np.ndarray) -> np.ndarray:
+    """``model.separate`` on the card in batches of BATCH: [n, T] -> [n, S, T]."""
+    outs = [model.separate(torch.from_numpy(mixes[i : i + BATCH]).cuda()).cpu().numpy()
+            for i in range(0, len(mixes), BATCH)]
+    return np.concatenate(outs)
+
+
+def _stream_err(got: np.ndarray, want: np.ndarray, what: str) -> float:
+    """The largest difference of streamed from offline output, over the
+    offline output's peak; raises above C7_STREAM_TOL."""
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{what}: {got.shape} (finite {np.isfinite(got).all()}), "
+                             f"want {want.shape}")
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    say(f"  {what}: max |streamed - offline| = {err:.3e} of the peak (tol {C7_STREAM_TOL:g}; "
+        f"peak {np.abs(want).max():.3g})")
+    if not err <= C7_STREAM_TOL:
+        raise AssertionError(f"{what}: streamed differs from offline by {err:.3e} of the peak")
+    return err
+
+
+def realtime_speed(model, chunk: int, streams: int) -> dict:
+    """ms per push and RTF of REALTIME_SPEED_SECONDS of audio per stream
+    through ``separate_streams`` (first push booked as warm-up)."""
+    from amss_tpu_torch.infer.realtime import RealtimeSeparator
+
+    rng = np.random.default_rng(1)
+    t = REALTIME_SPEED_SECONDS * SAMPLE_RATE
+    waves = (rng.standard_normal((streams, t)) * 0.3).astype(np.float32)
+    rt = RealtimeSeparator(model, chunk_samples=chunk, n_streams=streams)
+    out = rt.separate_streams(waves)
+    if out.shape != (streams, model.cfg.nb_speakers, t) or not np.isfinite(out).all():
+        raise AssertionError(f"realtime {chunk} x {streams}: {out.shape}")
+    ms = 1e3 * rt.compute_seconds / rt._timed_pushes
+    return dict(chunk=chunk, streams=streams, pushes=rt._timed_pushes, ms_per_push=ms,
+                rtf=rt.rtf, ms_per_push_per_stream=ms / streams,
+                latency_ms=1e3 * (chunk + rt.lag) / SAMPLE_RATE)
+
+
+def phase_realtime() -> tuple[dict, dict]:
+    """c7_causal offline and streamed on the card; returns (results,
+    launches)."""
+    from amss_tpu_torch.infer.realtime import RealtimeSeparator
+    from amss_tpu_torch.infer.streaming import BucketSpec, StreamingSeparator
+    from amss_tpu_torch.weights import load_model_from_run
+
+    model = load_model_from_run(C7_CAUSAL)
+    refs = quality_mixtures(2)
+    mixes = refs.sum(axis=1)
+    reset_launches()
+    sep = StreamingSeparator(model, sample_rate=SAMPLE_RATE,
+                             buckets=BucketSpec(lengths=(QUALITY_T,)))
+    offline = np.stack(sep.separate_all(list(mixes), max_batch=BATCH))
+    out = {}
+    rt = RealtimeSeparator(model, chunk_samples=REALTIME_CHUNK)
+    streamed = np.stack([rt.separate_stream(m) for m in mixes])
+    out["one_stream_err"] = _stream_err(streamed, offline, f"one stream, {len(mixes)} mixtures "
+                                        f"of {QUALITY_T} samples, chunk {REALTIME_CHUNK}")
+    piped = np.stack([rt.separate_stream_pipelined(m) for m in mixes[:BATCH]])
+    out["pipelined_err"] = _stream_err(piped, offline[:BATCH], "pipelined, 8 mixtures")
+    if not np.array_equal(piped, streamed[:BATCH]):
+        raise AssertionError("separate_stream_pipelined differs from separate_stream")
+    long = RealtimeSeparator(model, chunk_samples=REALTIME_CHUNK, long_stream=True)
+    out["long_stream_err"] = _stream_err(
+        np.stack([long.separate_stream(m) for m in mixes[:BATCH]]), offline[:BATCH],
+        "long_stream (Welford carry), 8 mixtures")
+    # 16 ragged streams at once, each against its own utterance offline
+    lengths = [QUALITY_T - 613 * i for i in range(REALTIME_STREAMS)]
+    waves = np.zeros((REALTIME_STREAMS, QUALITY_T), np.float32)
+    for i, n in enumerate(lengths):
+        waves[i, :n] = mixes[i, :n]
+    multi = RealtimeSeparator(model, chunk_samples=REALTIME_CHUNK, n_streams=REALTIME_STREAMS)
+    got = multi.separate_streams(waves, lengths=lengths)
+    alone = [model.separate(torch.from_numpy(waves[i : i + 1, :n]).cuda())[0].cpu().numpy()
+             for i, n in enumerate(lengths)]
+    out["ragged_err"] = max(
+        _stream_err(got[i, :, :n], alone[i], f"stream {i} of {REALTIME_STREAMS} ({n} samples) "
+                    "against it alone offline") for i, n in enumerate(lengths))
+    launches = launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"c7 launched {launches}; the gate is closed at 32/16")
+    # one push queued under the sync debug mode, its fetch outside it
+    chunk = mixes[0, :REALTIME_CHUNK].copy()
+    rt.reset()
+    rt.push(chunk)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        est = rt._dispatch(chunk, None)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not np.isfinite(est.cpu().numpy()).all():
+        raise AssertionError("the queued push gave non-finite samples")
+    say(f"  one push (copy in, encode, smoothing, norm, TCN, mask, decode, OLA): no host sync")
+    out["speed"] = [realtime_speed(model, chunk, streams)
+                    for chunk in (REALTIME_CHUNK, 1024) for streams in (1, REALTIME_STREAMS)]
+    for r in out["speed"]:
+        say(f"  chunk {r['chunk']} x {r['streams']} stream(s): {r['ms_per_push']:.3f} ms per "
+            f"push ({r['ms_per_push_per_stream']:.3f} per stream), rtf {r['rtf']:.5f}, "
+            f"latency {r['latency_ms']:.1f} ms, {r['pushes']} timed pushes")
+    launches = launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"c7 launched {launches}; the gate is closed at 32/16")
+    return out, launches
+
+
+def _fit_launches(recipe, steps: int) -> tuple[dict, dict]:
+    """(each kernel's launches in one train step, in ``fit`` for ``steps``
+    steps): a TasNet step encodes the mixture (B1) and decodes (B2, whose
+    backward runs B1); a clustering or L41 step encodes the mixture and the
+    sources (B1 twice).  Each validation runs ``valid_steps`` loss batches and
+    the image summaries (three encodes and one separate's decode)."""
+    t = recipe.train
+    k = _gate_launches(recipe.model)
+    b1, b2 = k["framed_matmul"], k["decode_ola"]
+    tasnet = recipe.model.kind == "tasnet"
+    step = {"framed_matmul": 2 * b1, "decode_ola": b2 if tasnet else 0}
+    valid = {"framed_matmul": b1 if tasnet else 2 * b1, "decode_ola": b2 if tasnet else 0}
+    n_valid = -(-steps // t.valid_every)
+    want = {n: step[n] * steps + (valid[n] * t.valid_steps + (3 * b1 if n == "framed_matmul"
+                                                               else b2)) * n_valid
+            for n in step}
+    return step, want
+
+
+def phase_train_recipe(recipe, store, workdir: str,
+                       grad_tol: float = STEP_GRAD_TOL) -> tuple[dict, dict]:
+    """``recipe`` at full width through Trainer.fit with phase 5's checks;
+    returns (results, launches)."""
+    from amss_tpu_torch.train.engine import Trainer
+
+    t = recipe.train
+    tr = Trainer(recipe, store, workdir=os.path.join(workdir, "runs"))
+    say(f"  run dir {os.path.basename(tr.dir)}")
+    state0 = tr.init_state()
+    batch0 = tr.mixer.batch("train", 0, t.batch_size)
+    step_check = first_step_matches_cpu(tr, state0, batch0, grad_tol=grad_tol)
+    per_step = check_train_step_needs_no_host_sync(tr, batch0)
+    want_step, want = _fit_launches(recipe, t.steps)
+    if per_step != want_step:
+        raise AssertionError(f"a {recipe.name} step launched {per_step}, want {want_step}")
+    tr.load_state(state0)
+    valid0 = tr.valid_loss()
+    final, launches, fit_s, peak = _fit_counted(tr, state0)
+    if launches != want:
+        raise AssertionError(f"{recipe.name} training launches {launches}, want {want}")
+    valid = _valid_losses(tr.dir)
+    if len(valid) != -(-t.steps // t.valid_every):
+        raise AssertionError(f"{recipe.name}: {len(valid)} validations")
+    if not valid[-1] < valid0:
+        raise AssertionError(f"{recipe.name} valid loss {valid0} at init, {valid} after")
+    check_checkpoint_reloads(tr, final, t.steps)
+    ms = window_ms_per_step(tr.dir, skip={TRAIN_LOG_EVERY})
+    say(f"  {recipe.name}: {ms:.3f} ms/step median after warm-up, peak memory "
+        f"{peak / 2**30:.3f} GiB, valid loss {valid0:.4f} -> {[round(v, 4) for v in valid]}, "
+        f"launches per step {per_step}")
+    return dict(steps=t.steps, batch=t.batch_size, chunk=t.chunk_samples, fit_s=fit_s,
+                ms_per_step=ms, steps_per_s=1e3 / ms, peak_bytes=peak, valid_loss_init=valid0,
+                valid_loss=valid, launches_per_step=per_step, run_dir=tr.dir,
+                **step_check), launches
+
+
+def _gated_quality(model, gate: float | None, what: str) -> tuple[dict, dict]:
+    """phase_quality with the launches counted (one warm-up call and one per
+    batch) and checked, and the SI-SDRi gated unless ``gate`` is None."""
+    reset_launches()
+    q = phase_quality(model)
+    got = launch_counts()
+    calls = -(-QUALITY_N // BATCH) + 1
+    k = _gate_launches(model.cfg)
+    if got != {n: k[n] * calls for n in k}:
+        raise AssertionError(f"{what} quality: launches {got}, want {k} x {calls}")
+    say(f"  {what} quality ({QUALITY_N} mixtures of {model.cfg.nb_speakers} speakers): si_sdri "
+        f"{q['si_sdri_db']:.3f} dB, 95% CI {q['ci95']} "
+        f"({'not gated' if gate is None else f'gate {gate} dB'}), launches {got}")
+    if gate is not None and not q["si_sdri_db"] >= gate:
+        raise AssertionError(f"{what}: SI-SDRi {q['si_sdri_db']:.3f} dB < {gate} dB")
+    return q, got
+
+
+def phase_c7(store, workdir: str) -> tuple[dict, dict]:
+    """c7_causal's quality, then the c7 recipe at full width."""
+    from amss_tpu_torch.configs.recipes import c7_realtime
+    from amss_tpu_torch.weights import load_model_from_run
+
+    out, launches = {}, {}
+    out["quality"], launches["c7_quality"] = _gated_quality(
+        load_model_from_run(C7_CAUSAL), C7_QUALITY_MIN_DB, "c7_causal")
+    say("c7 recipe training")
+    out["train"], launches["c7_train"] = phase_train_recipe(
+        c7_realtime(steps=C7_STEPS, valid_every=C7_STEPS // 2), store, workdir,
+        grad_tol=C6_STEP_GRAD_TOL)
+    return out, launches
+
+
+def enrolled_mixtures() -> tuple[np.ndarray, np.ndarray]:
+    """c3_l41's training speakers at unseen offsets, rebuilt from seeds:
+    (sources [C3_ENROLLED_N, 2, 16384], speaker ids [C3_ENROLLED_N, 2])."""
+    from amss_tpu_torch.data.mixer import Mixer
+    from amss_tpu_torch.data.synthetic import SyntheticStore
+
+    store = SyntheticStore(n_speakers=100, seconds_per_speaker=120.0, seed=1, version=2)
+    mixer = Mixer(store, nb_speakers=2, chunk_samples=16384, seed=0)
+    batches = [mixer.batch("train", 10_000_000 + i, 1) for i in range(C3_ENROLLED_N)]
+    return (np.concatenate([b.sources for b in batches]),
+            np.concatenate([b.speaker_ids for b in batches]))
+
+
+def phase_c3(store, workdir: str) -> tuple[dict, dict]:
+    """c3_l41 served blind and enrolled, then the c3 recipe at full width."""
+    from amss_tpu_torch.configs.recipes import c3_l41
+    from amss_tpu_torch.ops.metrics import sdr_improvement
+    from amss_tpu_torch.weights import load_model_from_run
+
+    out, launches = {}, {}
+    model = load_model_from_run(C3_L41)
+    out["speed"], launches["c3_serve"] = phase_speed(model)
+    sp = out["speed"]
+    say(f"  c3_l41 blind serving (64 x 8 s, batch 8): rtf {sp['rtf_pass2']:.6f}, "
+        f"{sp['utterances_per_s']:.2f} utterances/s, launches {launches['c3_serve']}")
+    out["quality"], launches["c3_quality"] = _gated_quality(model, C3_QUALITY_MIN_DB,
+                                                            "c3_l41 blind")
+    t0 = time.perf_counter()
+    sources, ids = enrolled_mixtures()
+    say(f"  enrolled mixtures rebuilt from seeds: {time.perf_counter() - t0:.2f} s")
+    mixes = sources.sum(axis=1)
+    reset_launches()
+    est = np.concatenate([
+        model.separate(torch.from_numpy(mixes[i : i + BATCH]).cuda(),
+                       speaker_ids=torch.from_numpy(ids[i : i + BATCH]).cuda()).cpu().numpy()
+        for i in range(0, len(mixes), BATCH)])
+    got = launch_counts()
+    calls = -(-len(mixes) // BATCH)
+    if got != {"framed_matmul": calls, "decode_ola": calls}:
+        raise AssertionError(f"c3 enrolled launches {got}, want {calls} each")
+    launches["c3_enrolled"] = got
+    imp = sdr_improvement(torch.from_numpy(est).double(), torch.from_numpy(sources).double(),
+                          torch.from_numpy(mixes).double()).numpy()
+    boot = np.random.default_rng(0).choice(imp, size=(10000, imp.size)).mean(axis=1)
+    out["enrolled"] = dict(si_sdri_db=float(imp.mean()), n=int(imp.size),
+                           ci95=[float(v) for v in np.percentile(boot, [2.5, 97.5])])
+    say(f"  c3_l41 enrolled ({len(mixes)} mixtures of its training speakers): si_sdri "
+        f"{imp.mean():.3f} dB, 95% CI {out['enrolled']['ci95']} (gate {C3_ENROLLED_MIN_DB} "
+        f"dB), launches {got}")
+    if not imp.mean() >= C3_ENROLLED_MIN_DB:
+        raise AssertionError(f"c3 enrolled SI-SDRi {imp.mean():.3f} dB < {C3_ENROLLED_MIN_DB}")
+    say("c3 recipe training")
+    out["train"], launches["c3_train"] = phase_train_recipe(
+        c3_l41(len(store.speakers), steps=C3_STEPS, valid_every=C3_STEPS // 2), store, workdir)
+    return out, launches
+
+
+def phase_kernel_c4(gen: torch.Generator) -> dict:
+    """B2 at c4's serving shape (8 utterances x 3 speakers) against its plain
+    version, timed beside it, its library call and its bound."""
+    from amss_tpu_torch.models.front import STFTFrontEnd
+    from amss_tpu_torch.ops.kernels.framed_matmul import framed_matmul, stft_basis
+    from amss_tpu_torch.ops.kernels.ola import decode_ola, decode_ola_ref
+    from amss_tpu_torch.utils.config import FrontConfig
+    from amss_tpu_torch.utils.timing import time_ms
+
+    say("c4: B2 decode_ola vs decode_ola_ref at [24, 997, 258]")
+    dev = torch.device("cuda")
+    x = torch.randn(BATCH, SECONDS * SAMPLE_RATE, generator=gen, device=dev) * 0.3
+    spec = framed_matmul(x, torch.as_tensor(stft_basis(256), device=dev), 64)
+    codes = torch.cat([spec, 0.5 * spec, 0.25 * spec]).contiguous()  # [24, 997, 258]
+    syn = STFTFrontEnd(FrontConfig()).to(dev).synthesis_basis
+    length, hop = SECONDS * SAMPLE_RATE, 64
+    y = decode_ola(codes, syn, hop, length=length)
+    err = check(f"258x256 hop 64 {list(codes.shape)} -> 64000 (c4 iSTFT, S = 3)", y,
+                decode_ola_ref(codes, syn, hop, length), 2e-4)
+    b, nf, k = codes.shape
+    codes_t = codes.transpose(1, 2).contiguous()
+    w_t = syn[:, None, :].contiguous()
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        lib = time_ms(lambda: F.conv_transpose1d(codes_t, w_t, stride=hop)[:, 0, :length])
+    r = dict(shape=f"codes {list(codes.shape)} x syn {list(syn.shape)}, hop {hop} -> {length}",
+             ms=time_ms(lambda: decode_ola(codes, syn, hop, length=length)),
+             plain_ms=time_ms(lambda: decode_ola_ref(codes, syn, hop, length)),
+             library_ms=lib, max_abs_err=err, tol=2e-4,
+             **bound(2.0 * b * nf * k * syn.shape[1],
+                     4.0 * (codes.numel() + syn.numel() + b * length)))
+    say(f"  B2 at c4 serving: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+        f"{r['library_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})")
+    return r
+
+
+def phase_c4(workdir: str) -> tuple[dict, dict]:
+    """The c4 recipe at full width on its own corpus, and the trained state
+    served, scored and held against the port on the CPU."""
+    from amss_tpu_torch.configs.recipes import c4_chimera_3mix
+    from amss_tpu_torch.ops.metrics import si_sdr
+    from amss_tpu_torch.weights import load_model_from_run
+
+    out, launches = {}, {}
+    say("c4 recipe training (S = 3)")
+    store = training_corpus(workdir, C4_SPEAKERS, "corpus_c4")
+    out["train"], launches["c4_train"] = phase_train_recipe(
+        c4_chimera_3mix(steps=C4_STEPS, valid_every=C4_STEPS // 4), store, workdir)
+    run_dir = out["train"]["run_dir"]
+    model = load_model_from_run(run_dir)
+    out["speed"], launches["c4_serve"] = phase_speed(model)
+    sp = out["speed"]
+    say(f"  c4 serving of the trained state (64 x 8 s, batch 8, S = 3): rtf "
+        f"{sp['rtf_pass2']:.6f}, {sp['utterances_per_s']:.2f} utterances/s, launches "
+        f"{launches['c4_serve']}")
+    out["quality_3spk"], launches["c4_quality"] = _gated_quality(
+        model, None, f"c4 after {C4_STEPS} steps (a cut run)")
+    mix = torch.from_numpy(quality_mixtures(3, 2).sum(axis=1))
+    card = model.separate(mix.cuda()).cpu().double()
+    cpu = load_model_from_run(run_dir, device="cpu").separate(mix).double()
+    db = si_sdr(card, cpu)
+    say(f"  c4 trained state on the card against the port on the CPU, two mixtures: SI-SDR "
+        f"{[round(float(v), 2) for v in db.flatten()]} dB (bound {C4_CARD_CPU_MIN_DB} dB)")
+    if not bool((db >= C4_CARD_CPU_MIN_DB).all()):
+        raise AssertionError(f"c4 card against CPU: {db.tolist()} dB")
+    out["card_vs_cpu_db"] = [float(v) for v in db.flatten()]
+    return out, launches
+
+
 def main() -> None:
     faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
     t_start = time.perf_counter()
@@ -1481,9 +1860,30 @@ def main() -> None:
             f"{r['valid_loss'][-1]:.4f}, launches per step {r['launches_per_step']}")
         say(f"phase 12 c6 training: {time.perf_counter() - t0:.2f} s")
 
+        t0 = time.perf_counter()
+        realtime, realtime_launches = phase_realtime()
+        say(f"c7 realtime (c7_causal, chunk {REALTIME_CHUNK}) on {card}: streamed against "
+            f"offline {max(realtime[k] for k in realtime if k.endswith('_err')):.3e} of the "
+            f"peak at most, launches {realtime_launches}")
+        say(f"phase 13 c7 realtime: {time.perf_counter() - t0:.2f} s")
+
+        t0 = time.perf_counter()
+        c7, c7_launches = phase_c7(store, workdir)
+        say(f"phase 14 c7 quality and training: {time.perf_counter() - t0:.2f} s")
+
+        t0 = time.perf_counter()
+        c3, c3_launches = phase_c3(store, workdir)
+        say(f"phase 15 c3 (L41): {time.perf_counter() - t0:.2f} s")
+
+        t0 = time.perf_counter()
+        c4_b2 = phase_kernel_c4(gen)
+        c4, c4_launches = phase_c4(workdir)
+        say(f"phase 16 c4 (Chimera): {time.perf_counter() - t0:.2f} s")
+
     per_path = {"c1_serve": launches, "c1_train": train_launches, "c2_serve": launches_c2,
                 **train_c2_launches, "long_form": long_launches, **serve_c6_launches,
-                **train_c6_launches}
+                **train_c6_launches, "c7_realtime": realtime_launches, **c7_launches,
+                **c3_launches, **c4_launches}
     record = []
     other = {"framed_matmul": "decode_ola", "decode_ola": "framed_matmul"}
     for name, (source, replaces, design) in KERNELS.items():
@@ -1517,10 +1917,15 @@ def main() -> None:
                    "grad_rel_err": max(c["grad_rel_err"] for c in kern_c6["grad_checks"][name]),
                    "grad_tol": GRAD_TOL, "gate": kern_c6["gate"]},
         })
+        if name == "decode_ola":
+            record[-1]["c4"] = {key: c4_b2[key] for key in (
+                "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err",
+                "tol")}
     say(json.dumps({"main_path": speed, "quality": quality, "training": train,
                     "c2_serving": speed_c2, "c2_quality": quality_c2, "c2_training": train_c2,
                     "long_form": long_form, "c6_serving": serve_c6, "c6_training": train_c6,
-                    "card": card,
+                    "c7_realtime": realtime, "c7": c7, "c3": c3,
+                    "c4": c4, "card": card,
                     "total_s": time.perf_counter() - t_start}))
     say(card)
     say(json.dumps({"kernels": record}))

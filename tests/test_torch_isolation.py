@@ -28,7 +28,8 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import amss_tpu_torch.weights, amss_tpu_torch.ops.metrics, amss_tpu_torch.data.synthetic\n"
         "import amss_tpu_torch.train.engine, amss_tpu_torch.configs.recipes\n"
         "import amss_tpu_torch.models.adapt, amss_tpu_torch.ops.pooling, amss_tpu_torch.infer.long\n"
-        "import amss_tpu_torch.tools.stage_times\n"
+        "import amss_tpu_torch.tools.stage_times, amss_tpu_torch.infer.realtime\n"
+        "import amss_tpu_torch.models.l41, amss_tpu_torch.models.chimera\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(BANNED)!r})\n"
         "print(','.join(bad))\n"
     )

@@ -144,8 +144,9 @@ def test_the_trunks_still_to_port_raise():
     for trunk, item in (("dprnn", "item 19"), ("dpt", "item 19")):
         with pytest.raises(NotImplementedError, match=item):
             TasNetModel(_port_cfg(_small(trunk=trunk)))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        TasNetModel(_port_cfg(_small(feature_norm="cumulative")))
+    noisy = dataclasses.replace(_port_cfg(_small()), train_noise_snr_db=(5.0, 15.0))
+    with pytest.raises(NotImplementedError, match="item 20"):
+        TasNetModel(noisy).loss(torch.zeros((1, 2, 2048)), training=True)
     model = TasNetModel(_port_cfg(_small(dropout=0.1)))
     model.init_parameters(torch.Generator().manual_seed(0))
     sources = torch.zeros((1, 2, 2048))
