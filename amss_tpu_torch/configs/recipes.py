@@ -4,11 +4,14 @@ c1, c5, c2_pretrain, c2, c3 (L41) and c4 (Chimera, three speakers) (STFT
 a 2×300 BLSTM with E = 20), c6 (TasNet: the adaptive front of 256 filters of
 32 taps, stride 16, pool 1; a TCN of 3 repeats of 8 blocks, bottleneck 128,
 expansion 2) and c7 (c6's front and a causal TCN of 2 repeats of 8 blocks
-after the cumulative norm, served in chunks by ``infer/realtime.py``).  Two
-speakers unless named, batch 8 of 16384 samples.  Keyword overrides go to
-``TrainConfig``."""
+after the cumulative norm, served in chunks by ``infer/realtime.py``), and
+enh (a 1×128 BLSTM refining the frozen separator of ``base_run``, STFT
+256/64).  Two speakers unless named, batch 8 of 16384 samples.  Keyword
+overrides go to ``TrainConfig``."""
 
 from __future__ import annotations
+
+import dataclasses
 
 from amss_tpu_torch.utils.config import (
     FrontConfig,
@@ -120,3 +123,33 @@ def c7_realtime(**over) -> RecipeConfig:
         ),
         train=TrainConfig(**{"batch_size": 8, "chunk_samples": 16384, "lr": 1e-3, **over}),
     )
+
+
+def enh_dpcl(base_run: str | None = None, **over) -> RecipeConfig:
+    """The enhancement stage: a one-layer BLSTM of 128 that refines the
+    frozen separator of ``base_run`` (clustering bases: a TasNet base
+    regresses, and ``EnhancerModel`` warns)."""
+    return RecipeConfig(
+        name="enh_dpcl",
+        model=ModelConfig(kind="enhance", front=_STFT,
+                          sep=SeparatorConfig(hidden=128, layers=1, embed_dim=20),
+                          nb_speakers=2),
+        train=TrainConfig(**{"batch_size": 8, "chunk_samples": 16384, "lr": 3e-4, **over}),
+        base_run=base_run,
+    )
+
+
+def c6_dual_path(trunk: str, **over) -> RecipeConfig:
+    """c6 with a dual-path trunk, at the widths the JAX package's experiment
+    scripts trained it: ``dprnn`` as ``tasnet_h128b6_12k``
+    (``scripts/r2b_wave.py:118-123``: width 128, 6 blocks) and ``dpt`` as
+    ``dpt_probe`` (``scripts/r3_wave.py:480-481``: width 192, 6 blocks, 4
+    heads, feed-forward 4 x 192, dropout 0.1); both in chunks of 32 frames.
+    The run names and training settings are c6's; keyword overrides go to
+    ``TrainConfig``."""
+    sep = {"dprnn": dict(trunk="dprnn", blocks=6),
+           "dpt": dict(trunk="dpt", hidden=192, blocks=6, chunk_frames=32, heads=4,
+                       expansion=4, dropout=0.1)}[trunk]
+    r = c6_tasnet(**over)
+    return dataclasses.replace(r, model=dataclasses.replace(
+        r.model, sep=dataclasses.replace(r.model.sep, **sep)))

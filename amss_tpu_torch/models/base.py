@@ -1,13 +1,15 @@
 """Separator machinery shared by the heads (``amss_tpu/models/base.py``):
 the front, the normalised trunk, the training targets, and mask application.
 
-The port has two trunks: the BLSTM (float32) and the TCN (float32, or bf16
-operands in its dense products, ``compute_dtype="bfloat16"``), each after the
-global (instance), per-channel or cumulative (causal) feature norm.  Still
-raising, each naming its ROADMAP item: the DPRNN and DPT trunks (item 19),
-and the BLSTM in bfloat16.  The JAX package's train-time
-corruptions (noise, reverberation, dropped sources) are drawn from a JAX
-key; here they raise until ROADMAP item 20 ports them.
+The port has the JAX package's four trunks, each after the global
+(instance), per-channel or cumulative (causal) feature norm: the BLSTM and
+the dual-path RNN (float32), the TCN and the dual-path transformer (float32,
+or bf16 operands in their products, ``compute_dtype="bfloat16"``).  Every
+head takes every trunk.  Training-time dropout (``sep.dropout``) is drawn
+from a ``DropoutKey`` (``models/dprnn.py``), which the ``Trainer`` passes as
+``rng``; without one it is off, as the JAX package's is without a key.  The
+BLSTM in bfloat16 raises.  The JAX package's train-time corruptions (noise,
+reverberation, dropped sources) raise until ROADMAP item 20 ports them.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import torch
 from torch import nn
 
 from amss_tpu_torch.models.blstm import BLSTM
+from amss_tpu_torch.models.dprnn import DPRNN, DropoutKey, dprnn_stack
+from amss_tpu_torch.models.dptransformer import DPT, dpt_stack
 from amss_tpu_torch.models.front import (
     bin_weights,
     channel_norm,
@@ -32,48 +36,54 @@ _EPS = 1e-8
 
 
 class SeparatorBase(nn.Module):
-    """Front + trunk (``blstm`` or ``tcn``); subclasses add heads."""
+    """Front + trunk (``blstm``, ``tcn``, ``dprnn`` or ``dpt``); subclasses
+    add heads."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         sep = cfg.sep
-        if sep.trunk in ("dprnn", "dpt"):
-            raise NotImplementedError(
-                f"trunk {sep.trunk!r} is not ported yet: ROADMAP item 19")
-        if sep.trunk not in ("blstm", "tcn"):
+        if sep.trunk not in ("blstm", "tcn", "dprnn", "dpt"):
             raise ValueError(f"unknown trunk {sep.trunk!r}")
         if sep.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown compute_dtype {sep.compute_dtype!r}")
-        if sep.trunk == "blstm" and sep.compute_dtype != "float32":
+        if sep.trunk in ("blstm", "dprnn") and sep.compute_dtype != "float32":
             raise NotImplementedError(
-                f"the BLSTM trunk in {sep.compute_dtype} is not ported yet; "
+                f"the {sep.trunk} trunk's BLSTM in {sep.compute_dtype} is not ported; "
                 "the port runs it in float32")
         self.cfg = cfg
         self.front = make_front(cfg.front)
+        f = cfg.front.feature_dim
         if sep.trunk == "tcn":
-            self.tcn = TCN(cfg.front.feature_dim, bottleneck=sep.hidden,
-                           hidden=sep.expansion * sep.hidden, blocks=sep.blocks,
-                           repeats=sep.repeats, kernel=sep.kernel)
+            self.tcn = TCN(f, bottleneck=sep.hidden, hidden=sep.expansion * sep.hidden,
+                           blocks=sep.blocks, repeats=sep.repeats, kernel=sep.kernel)
+        elif sep.trunk == "dprnn":
+            self.dprnn = DPRNN(f, d_model=sep.hidden, hidden=sep.hidden, blocks=sep.blocks)
+        elif sep.trunk == "dpt":
+            if sep.hidden % sep.heads:
+                raise ValueError(f"sep.hidden={sep.hidden} not divisible by heads={sep.heads}")
+            self.dpt = DPT(f, d_model=sep.hidden, ffn_dim=sep.expansion * sep.hidden,
+                           blocks=sep.blocks)
         else:
-            self.blstm = BLSTM(cfg.front.feature_dim, sep.hidden, sep.layers)
+            self.blstm = BLSTM(f, sep.hidden, sep.layers)
 
     @property
     def trunk_dim(self) -> int:
         """Width of the trunk's output: ``hidden`` for the TCN (its
-        bottleneck), ``2·hidden`` for the BLSTM."""
-        return self.cfg.sep.hidden if self.cfg.sep.trunk == "tcn" else 2 * self.cfg.sep.hidden
+        bottleneck) and the dual-path trunks, ``2·hidden`` for the BLSTM."""
+        return 2 * self.cfg.sep.hidden if self.cfg.sep.trunk == "blstm" else self.cfg.sep.hidden
 
     def init_trunk(self, generator: torch.Generator) -> None:
         """Draw the trunk's parameters from the JAX package's distributions."""
-        (self.tcn if self.cfg.sep.trunk == "tcn" else self.blstm).init_parameters(generator)
+        getattr(self, self.cfg.sep.trunk).init_parameters(generator)
 
     @property
     def compute_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.cfg.sep.compute_dtype == "bfloat16" else torch.float32
 
     def trunk(self, feats: torch.Tensor, frame_mask: torch.Tensor | None = None,
-              training: bool = False) -> torch.Tensor:
-        """features [B, T', F] -> [B, T', trunk_dim]."""
+              rng: DropoutKey | None = None) -> torch.Tensor:
+        """features [B, T', F] -> [B, T', trunk_dim]; ``rng`` is the
+        training-time dropout key (None: no dropout)."""
         sep = self.cfg.sep
         if sep.feature_norm == "cumulative":
             h, _ = cumulative_norm(feats, frame_mask)
@@ -81,18 +91,18 @@ class SeparatorBase(nn.Module):
             h = channel_norm(feats, frame_mask)
         else:
             h = instance_norm(feats, frame_mask)
+        common = dict(compute_dtype=self.compute_dtype, remat=sep.remat,
+                      dropout_rate=sep.dropout, rng=rng)
         if sep.trunk == "tcn":
             return tcn_stack(self.tcn, h, mask=frame_mask, blocks_per_repeat=sep.blocks,
-                             compute_dtype=self.compute_dtype, remat=sep.remat,
-                             dropout_rate=sep.dropout, training=training, causal=sep.causal)
-        return self.blstm(h, frame_mask)
-
-    def check_no_blstm_dropout(self, training: bool) -> None:
-        """The BLSTM heads' training-time dropout is not ported: raise."""
-        if training and self.cfg.sep.dropout > 0.0:
-            raise NotImplementedError(
-                f"sep.dropout={self.cfg.sep.dropout}: training-time dropout is not "
-                "ported yet; it comes with the first recipe that uses it")
+                             causal=sep.causal, **common)
+        if sep.trunk == "dprnn":
+            return dprnn_stack(self.dprnn, h, mask=frame_mask, chunk_frames=sep.chunk_frames,
+                               **common)
+        if sep.trunk == "dpt":
+            return dpt_stack(self.dpt, h, mask=frame_mask, chunk_frames=sep.chunk_frames,
+                             heads=sep.heads, **common)
+        return self.blstm(h, frame_mask, dropout_rate=sep.dropout, rng=rng)
 
     def _check_no_corruption(self) -> None:
         c = self.cfg
@@ -135,10 +145,11 @@ class SeparatorBase(nn.Module):
             return psa_targets(codes, aux, src_codes, src_aux)
         return src_codes
 
-    def loss_from_batch(self, batch: dict, training: bool = False):
+    def loss_from_batch(self, batch: dict, training: bool = False,
+                        rng: DropoutKey | None = None):
         """The trainer's entry point: ``(loss, metrics)`` from a batch holding
-        ``sources`` [B, S, T]."""
-        return self.loss(batch["sources"], training=training)
+        ``sources`` [B, S, T]; ``rng`` is the dropout key."""
+        return self.loss(batch["sources"], training=training, rng=rng)
 
     def apply_masks_and_decode(
         self,

@@ -9,9 +9,14 @@ ways to run them:
   freeze (h, c) and output 0; the backward direction runs on the flipped
   input).  It takes any mask and runs on the CPU and in the tests.
 * ``packed``: cuDNN's LSTM over packed prefix-length sequences.  For a prefix
-  mask, which is all the serving path builds, it computes the same thing; it
+  mask, which is all the port's callers build, it computes the same thing; it
   runs on CUDA, in FP32 (TF32 off), and trains (cuDNN's backward needs the
-  module in training mode).
+  module in training mode).  The lengths come from the caller when it has
+  them on the host; otherwise the mask is copied to the host, once a call.
+
+With a dropout key and a rate, dropout follows every layer, the last one
+included, as in the JAX package's ``blstm_stack``; cuDNN then runs one layer
+at a time, copying that layer's weights out of the flat buffer each call.
 
 ``dense`` is the JAX package's ``dense`` (``blstm.py:43-46``) over an
 ``nn.Linear`` holding ``weight = wᵀ``, in float32 or bfloat16.
@@ -24,7 +29,18 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
+from torch.nn.utils.rnn import PackedSequence, pack_padded_sequence, pad_packed_sequence
+
+
+def prefix_lengths(mask: torch.Tensor) -> torch.Tensor:
+    """The valid lengths (int64, on the host) of a prefix mask ``[B, T]``,
+    copied to the host once: cuDNN wants them there.  Any other mask is
+    refused."""
+    m = mask.to("cpu") > 0
+    lengths = m.sum(dim=1)
+    if not torch.equal(m, torch.arange(m.shape[1])[None, :] < lengths[:, None]):
+        raise ValueError("the packed BLSTM takes prefix masks only")
+    return lengths
 
 
 class BLSTM(nn.Module):
@@ -56,11 +72,26 @@ class BLSTM(nn.Module):
             else:
                 p.zero_()
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
-        """x ``[B, T, In]``, mask ``[B, T]`` (1 = valid) -> ``[B, T, 2H]``."""
-        if x.device.type == "cuda":
-            return self.packed(x, mask)
-        return self.loop(x, mask)
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
+                lengths: torch.Tensor | None = None, dropout_rate: float = 0.0,
+                rng=None) -> torch.Tensor:
+        """x ``[B, T, In]``, mask ``[B, T]`` (1 = valid) -> ``[B, T, 2H]``.
+
+        ``lengths`` (int64 on the host) are the mask's prefix lengths, where
+        the caller has them: the packed path then copies nothing to the host.
+        ``rng`` (a ``models/dprnn.py::DropoutKey``) turns dropout on."""
+        cuda = x.device.type == "cuda"
+        if cuda and mask is not None and lengths is None:
+            lengths = prefix_lengths(mask)
+        if rng is None or dropout_rate <= 0.0:
+            return self.packed(x, mask, lengths) if cuda else self.loop(x, mask)
+        from amss_tpu_torch.models.dprnn import dropout
+
+        h = x
+        for layer, r in enumerate(rng.split(self.layers)):
+            h = self.packed(h, mask, lengths, layer) if cuda else self._layer_loop(h, mask, layer)
+            h = dropout(h, dropout_rate, r)
+        return h
 
     def _weights(self, layer: int, reverse: bool):
         sfx = f"_l{layer}" + ("_reverse" if reverse else "")
@@ -101,34 +132,63 @@ class BLSTM(nn.Module):
         out = torch.stack(outs, dim=1)
         return torch.flip(out, dims=(1,)) if reverse else out
 
+    def _layer_loop(self, x, mask, layer: int) -> torch.Tensor:
+        return torch.cat([self._direction(x, mask, layer, False),
+                          self._direction(x, mask, layer, True)], dim=-1)
+
     def loop(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         h = x
         for layer in range(self.layers):
-            h = torch.cat(
-                [self._direction(h, mask, layer, False), self._direction(h, mask, layer, True)],
-                dim=-1,
-            )
+            h = self._layer_loop(h, mask, layer)
         return h
 
-    def packed(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+    def _cudnn(self, inp, layer: int | None, batch_sizes=None) -> torch.Tensor:
+        """cuDNN's LSTM over every layer (``layer`` None), or over one: the
+        call ``nn.LSTM.forward`` makes, given that layer's weights alone."""
+        if layer is None:
+            if batch_sizes is None:
+                return self.lstm(inp)[0]
+            return self.lstm(PackedSequence(inp, batch_sizes))[0].data
+        w = [getattr(self.lstm, f"{n}_l{layer}{sfx}") for sfx in ("", "_reverse")
+             for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
+        n = inp.shape[0] if batch_sizes is None else int(batch_sizes[0])
+        h0 = inp.new_zeros((2, n, self.hidden))
+        if batch_sizes is None:
+            return torch._VF.lstm(inp, (h0, h0), w, True, 1, 0.0, self.training, True, True)[0]
+        return torch._VF.lstm(inp, batch_sizes, (h0, h0), w, True, 1, 0.0, self.training,
+                              True)[0]
+
+    def packed(self, x: torch.Tensor, mask: torch.Tensor | None = None,
+               lengths: torch.Tensor | None = None, layer: int | None = None) -> torch.Tensor:
+        """cuDNN over every layer, or over ``layer`` alone.  The rows are
+        sorted by length on the host and reordered on the device through
+        pinned copies, so a call given ``lengths`` waits for nothing."""
         flags = torch.backends.cudnn.flags(
             enabled=True, benchmark=False, deterministic=False, allow_tf32=False
         )
         if mask is None:
             with flags:
-                return self.lstm(x)[0]
-        m = mask.to("cpu")  # cuDNN wants the lengths on the host
-        lengths = (m > 0).sum(dim=1)
-        steps = torch.arange(m.shape[1])
-        if not torch.equal(m > 0, steps[None, :] < lengths[:, None]):
-            raise ValueError("the packed BLSTM takes prefix masks only")
+                return self._cudnn(x, layer)
+        if lengths is None:
+            lengths = prefix_lengths(mask)
+        order = torch.argsort(lengths, descending=True, stable=True)
+        unorder = torch.empty_like(order)
+        unorder[order] = torch.arange(order.numel())
+
+        def on_device(idx):
+            if x.device.type != "cuda":
+                return idx
+            return idx.pin_memory().to(x.device, non_blocking=True)
+
         packed = pack_padded_sequence(
-            x, torch.clamp(lengths, min=1), batch_first=True, enforce_sorted=False
-        )
+            x.index_select(0, on_device(order)), torch.clamp(lengths[order], min=1),
+            batch_first=True, enforce_sorted=True)
         with flags:
-            out = self.lstm(packed)[0]
-        out, _ = pad_packed_sequence(out, batch_first=True, total_length=x.shape[1])
-        return out * mask[..., None]  # rows with no valid frame output 0
+            data = self._cudnn(packed.data, layer, packed.batch_sizes)
+        out, _ = pad_packed_sequence(PackedSequence(data, packed.batch_sizes),
+                                     batch_first=True, total_length=x.shape[1])
+        # rows with no valid frame output 0
+        return out.index_select(0, on_device(unorder)) * mask[..., None]
 
 
 # How the card multiplies two bf16 operands into a float32 result: cuBLAS's
@@ -176,12 +236,12 @@ class _Bf16Dense(torch.autograd.Function):
 
 
 @torch.no_grad()
-def init_dense(layer: nn.Linear, generator: torch.Generator) -> None:
-    """``_init_dense``'s distribution: w ``[in, out]`` uniform in ±1/√in
-    (drawn in that layout from ``generator``), bias 0."""
+def init_dense(layer: nn.Linear, generator: torch.Generator, scale: float | None = None) -> None:
+    """``_init_dense``'s distribution: w ``[in, out]`` uniform in ±scale
+    (1/√in by default), drawn in that layout from ``generator``; bias 0."""
     n_in = layer.in_features
-    w = torch.empty(n_in, layer.out_features).uniform_(
-        -1.0 / math.sqrt(n_in), 1.0 / math.sqrt(n_in), generator=generator)
+    scale = 1.0 / math.sqrt(n_in) if scale is None else scale
+    w = torch.empty(n_in, layer.out_features).uniform_(-scale, scale, generator=generator)
     layer.weight.copy_(w.T)
     layer.bias.zero_()
 

@@ -17,6 +17,7 @@ from torch import nn
 from amss_tpu_torch.models.base import _EPS, SeparatorBase
 from amss_tpu_torch.models.blstm import dense, init_dense
 from amss_tpu_torch.models.dpcl import dpcl_loss
+from amss_tpu_torch.models.dprnn import DropoutKey
 from amss_tpu_torch.utils.config import ModelConfig
 
 
@@ -62,25 +63,25 @@ class ChimeraModel(SeparatorBase):
             self.front.init_parameters(generator)
 
     def heads(self, feats: torch.Tensor, frame_mask: torch.Tensor | None = None,
-              training: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+              rng: DropoutKey | None = None) -> tuple[torch.Tensor, torch.Tensor]:
         """features [B, T', F] -> (unit embeddings [B, T', F, E], softmax masks
         [B, T', F, S])."""
         c = self.cfg
-        h = self.trunk(feats, frame_mask, training)
+        h = self.trunk(feats, frame_mask, rng)
         v = dense(self.proj_embed, h, self.compute_dtype)
         v = torch.tanh(v.reshape(*feats.shape, c.sep.embed_dim))
         v = v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + _EPS)
         m = dense(self.proj_mask, h, self.compute_dtype)
         return v, torch.softmax(m.reshape(*feats.shape, c.nb_speakers), dim=-1)
 
-    def loss(self, sources: torch.Tensor, training: bool = False) -> tuple[torch.Tensor, dict]:
+    def loss(self, sources: torch.Tensor, training: bool = False,
+             rng: DropoutKey | None = None) -> tuple[torch.Tensor, dict]:
         """The two heads' losses from the source chunks [B, S, T], mixed on
         the device, weighted by ``chimera_alpha``."""
-        self.check_no_blstm_dropout(training)
         c = self.cfg
         mix, codes, aux, src_codes, y, w, src_aux = self.encode_mix_and_sources(
             sources, training)
-        v, masks = self.heads(self.front.features(codes), training=training)
+        v, masks = self.heads(self.front.features(codes), rng=rng)
         l_dc = dpcl_loss(v, y, w)
         l_mi = msa_pit_loss(masks, codes, self.mi_targets(codes, aux, src_codes, src_aux), w)
         loss = c.chimera_alpha * l_dc + (1.0 - c.chimera_alpha) * l_mi

@@ -10,7 +10,8 @@ import torch
 from torch import nn
 
 from amss_tpu_torch.models.base import _EPS, SeparatorBase
-from amss_tpu_torch.models.blstm import init_dense
+from amss_tpu_torch.models.blstm import dense, init_dense
+from amss_tpu_torch.models.dprnn import DropoutKey
 from amss_tpu_torch.models.front import _one_hot_last, vad_weights
 from amss_tpu_torch.ops.kmeans import kmeans, soft_assignments
 from amss_tpu_torch.utils.config import ModelConfig
@@ -56,13 +57,13 @@ class DPCLModel(SeparatorBase):
         if hasattr(self.front, "init_parameters"):  # a learned front, drawn last
             self.front.init_parameters(generator)
 
-    def loss(self, sources: torch.Tensor, training: bool = False) -> tuple[torch.Tensor, dict]:
+    def loss(self, sources: torch.Tensor, training: bool = False,
+             rng: DropoutKey | None = None) -> tuple[torch.Tensor, dict]:
         """Training objective from the source chunks [B, S, T], mixed on the
         device: the DPCL loss, plus ``recon_weight`` times the mixture's
-        reconstruction error when that is set."""
-        self.check_no_blstm_dropout(training)
+        reconstruction error when that is set.  ``rng`` is the dropout key."""
         mix, codes, aux, _, y, w, _ = self.encode_mix_and_sources(sources, training)
-        v = self.embed(self.front.features(codes))
+        v = self.embed(self.front.features(codes), rng=rng)
         l_dc = dpcl_loss(v, y, w)
         metrics = {"dpcl_loss": l_dc}
         loss = l_dc
@@ -74,14 +75,15 @@ class DPCLModel(SeparatorBase):
         return loss, metrics
 
     def embed(
-        self, feats: torch.Tensor, frame_mask: torch.Tensor | None = None
+        self, feats: torch.Tensor, frame_mask: torch.Tensor | None = None,
+        rng: DropoutKey | None = None,
     ) -> torch.Tensor:
         """features [B, T', F] -> unit embeddings [B, T', F, E]."""
-        return self.head(self.trunk(feats, frame_mask))
+        return self.head(self.trunk(feats, frame_mask, rng))
 
     def head(self, h: torch.Tensor) -> torch.Tensor:
-        """trunk output [B, T', 2H] -> unit embeddings [B, T', F, E]."""
-        v = self.proj(h)
+        """trunk output [B, T', trunk_dim] -> unit embeddings [B, T', F, E]."""
+        v = dense(self.proj, h, self.compute_dtype)
         v = torch.tanh(v.reshape(*h.shape[:-1], self.cfg.front.feature_dim, self.cfg.sep.embed_dim))
         return v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + _EPS)
 

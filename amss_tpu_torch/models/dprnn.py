@@ -1,14 +1,85 @@
-"""Layer norm and dropout (``amss_tpu/models/dprnn.py:32-48``), the two
-pieces of the dual-path module that the TCN trunk (``models/tcn.py``) uses.
+"""The dual-path recurrent trunk (``amss_tpu/models/dprnn.py``), its layer
+norm, and training-time dropout.
 
-The DPRNN trunk itself (intra- and inter-chunk BLSTMs) is ROADMAP item 19.
+The frame axis ``T'`` is padded to ``P·K`` frames and factored into P chunks
+of K frames.  Each block runs an intra-chunk path over K (chunks folded into
+the batch, ``[B·P, K, D]``) and an inter-chunk path over P (frame positions
+folded into the batch, ``[B·K, P, D]``), each a one-layer BLSTM, a ``dense``
+back to D, a layer norm, dropout and the residual.  Padded frames are zeroed
+after every block.  With ``remat`` each block is recomputed in the backward
+(``torch.utils.checkpoint``).
+
+For a prefix frame mask every intra row and every inter row is again a prefix
+(or empty), which is what cuDNN's packed LSTM takes.  Their lengths are
+derived on the host once per trunk call (``path_lengths``): from the shapes
+alone when the mask only marks the padding to ``P·K`` (training), else from
+one copy of the mask to the host.  The BLSTM then copies nothing itself.
+
+Dropout: the JAX package's ``where(bernoulli(keep), x / keep, 0)``, the
+identity without a key or at rate 0.  A key (``DropoutKey``) is an integer
+seed that splits into child keys on the host and draws its keep mask from a
+generator seeded with it on the tensor's device.  A block receives its key
+and draws its masks inside, so the recompute of a checkpointed block draws
+the same masks again (``torch.utils.checkpoint`` restores the global
+generators only, not an explicit one).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from amss_tpu_torch.models.blstm import BLSTM, dense, init_dense, prefix_lengths
+
+
+class DropoutKey:
+    """A key for training-time dropout, as a JAX PRNG key is for the JAX
+    package's: ``split`` and ``fold_in`` derive child keys on the host,
+    ``keep_mask`` draws a mask from a generator seeded with the key on the
+    tensor's device.  The same key draws the same mask again on one device; a
+    CPU and a CUDA generator draw different masks from one seed."""
+
+    __slots__ = ("seed",)
+
+    def __init__(self, seed: int):
+        self.seed = int(seed) % 2**63
+
+    def split(self, n: int) -> list[DropoutKey]:
+        g = torch.Generator().manual_seed(self.seed)
+        return [DropoutKey(s) for s in torch.randint(0, 2**62, (n,), generator=g).tolist()]
+
+    def fold_in(self, data: int) -> DropoutKey:
+        """The key of ``data`` (a step, a microbatch) under this one."""
+        g = torch.Generator().manual_seed((self.seed * 0x9E3779B97F4A7C15 + int(data)) % 2**63)
+        return DropoutKey(int(torch.randint(0, 2**62, (1,), generator=g)))
+
+    def keep_mask(self, shape, keep: float, device) -> torch.Tensor:
+        """A boolean mask of ``shape``, each entry True with probability
+        ``keep``."""
+        g = torch.Generator(device=device).manual_seed(self.seed)
+        return torch.rand(shape, generator=g, device=device) < keep
+
+
+def apply_keep_mask(x: torch.Tensor, keep_mask: torch.Tensor, keep: float) -> torch.Tensor:
+    """Inverted dropout with a given mask: ``x / keep`` where kept, else 0."""
+    return torch.where(keep_mask, x / keep, 0.0)
+
+
+def dropout(x: torch.Tensor, rate: float, rng: DropoutKey | None) -> torch.Tensor:
+    """Inverted dropout at ``rate``; the identity when ``rng`` is None (eval)
+    or the rate is 0, as the JAX package's dropout is without a key."""
+    if rng is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    return apply_keep_mask(x, rng.keep_mask(x.shape, keep, x.device), keep)
+
+
+def split_key(rng: DropoutKey | None, n: int) -> list:
+    """``n`` child keys of ``rng``, or ``n`` Nones without one."""
+    return [None] * n if rng is None else rng.split(n)
 
 
 class LayerNorm(nn.Module):
@@ -20,6 +91,11 @@ class LayerNorm(nn.Module):
         self.g = nn.Parameter(torch.ones(dim))
         self.b = nn.Parameter(torch.zeros(dim))
 
+    @torch.no_grad()
+    def reset(self) -> None:
+        self.g.fill_(1.0)
+        self.b.zero_()
+
 
 def layer_norm(p: LayerNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """``(x - mean) / sqrt(var + eps) * g + b`` over the last axis, with the
@@ -28,10 +104,129 @@ def layer_norm(p: LayerNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     return F.layer_norm(x, (x.shape[-1],), p.g, p.b, eps)
 
 
-def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
-    """Identity outside training or at rate 0, as the JAX package's dropout
-    is without a key.  Training-time dropout raises: ROADMAP item 12d."""
-    if training and rate > 0.0:
-        raise NotImplementedError(
-            f"dropout rate {rate} in training is not ported yet: ROADMAP item 12d")
-    return x
+class DualPathPath(nn.Module):
+    """One path of a block: ``lstm`` (a one-layer BLSTM D -> 2·hidden),
+    ``proj`` (2·hidden -> D) and ``ln``."""
+
+    def __init__(self, d_model: int, hidden: int):
+        super().__init__()
+        self.lstm = BLSTM(d_model, hidden, 1)
+        self.proj = nn.Linear(2 * hidden, d_model)
+        self.ln = LayerNorm(d_model)
+
+
+class DPRNNBlock(nn.Module):
+    def __init__(self, d_model: int, hidden: int):
+        super().__init__()
+        self.intra = DualPathPath(d_model, hidden)
+        self.inter = DualPathPath(d_model, hidden)
+
+
+class DPRNN(nn.Module):
+    """``in_proj`` (F -> D) and ``blocks`` of intra and inter paths
+    (``init_dprnn``)."""
+
+    def __init__(self, n_in: int, d_model: int, hidden: int, blocks: int):
+        super().__init__()
+        self.in_proj = nn.Linear(n_in, d_model)
+        self.blocks = nn.ModuleList(DPRNNBlock(d_model, hidden) for _ in range(blocks))
+
+    @torch.no_grad()
+    def init_parameters(self, generator: torch.Generator) -> None:
+        """The JAX package's distributions: each dense uniform in ±1/√n_in
+        with bias 0, each LSTM as ``init_lstm_layer``, layer norms g = 1 and
+        b = 0.  ``generator`` (a CPU generator) cannot replay ``jax.random``."""
+        init_dense(self.in_proj, generator)
+        for blk in self.blocks:
+            for path in (blk.intra, blk.inter):
+                path.lstm.init_parameters(generator)
+                init_dense(path.proj, generator)
+                path.ln.reset()
+
+
+def path_lengths(t: int, k: int, mask: torch.Tensor | None, batch: int):
+    """The host-side valid lengths of the intra rows ``[B·P]`` and the inter
+    rows ``[B·K]`` of a trunk over ``t`` frames in chunks of ``k``, or None
+    where neither path needs a mask.
+
+    Without ``mask`` only the padding to ``P·K`` is masked, and the lengths
+    follow from the shapes.  With one, it is copied to the host once and must
+    be a prefix mask (cuDNN's packed LSTM takes prefixes only)."""
+    p = -(-t // k)
+    if mask is None:
+        if p * k == t:
+            return None
+        counts = np.full(batch, t, np.int64)
+    else:
+        counts = prefix_lengths(mask).numpy()
+    starts = np.arange(p) * k
+    intra = np.clip(counts[:, None] - starts[None, :], 0, k)  # [B, P]
+    inter = np.clip(-(-(counts[:, None] - np.arange(k)[None, :]) // k), 0, p)  # [B, K]
+    return torch.from_numpy(intra.reshape(-1)), torch.from_numpy(inter.reshape(-1))
+
+
+def pad_to_chunks(h: torch.Tensor, mask: torch.Tensor | None, k: int):
+    """The trunk's input ``[B, T', D]`` padded to ``P·K`` frames and its mask,
+    materialised when padding is introduced (so padded frames never reach
+    the inter-chunk path): -> (h ``[B, P, K, D]``, mask ``[B, P, K]`` or
+    None)."""
+    b, t, d = h.shape
+    p = -(-t // k)
+    if p * k != t:
+        h = F.pad(h, (0, 0, 0, p * k - t))
+        m = torch.ones((b, t), dtype=h.dtype, device=h.device) if mask is None else mask
+        mask = F.pad(m.to(h.dtype), (0, p * k - t))
+    m_g = None if mask is None else mask.to(h.dtype).reshape(b, p, k)
+    return h.reshape(b, p, k, d), m_g
+
+
+def _path(path: DualPathPath, x, mask, lengths, compute_dtype, rate, rng):
+    """BLSTM -> proj -> layer norm -> dropout; x ``[N, L, D]`` -> ``[N, L, D]``."""
+    h = path.lstm(x, mask, lengths=lengths)
+    h = dense(path.proj, h, compute_dtype)
+    return dropout(layer_norm(path.ln, h), rate, rng)
+
+
+def _block(bp: DPRNNBlock, h, m_g, lengths, compute_dtype, rate, rng):
+    b, p, k, d = h.shape
+    r1, r2 = split_key(rng, 2)
+    li, lt = (None, None) if lengths is None else lengths
+    mi = None if m_g is None else m_g.reshape(b * p, k)
+    h = h + _path(bp.intra, h.reshape(b * p, k, d), mi, li, compute_dtype, rate,
+                  r1).reshape(b, p, k, d)
+    ht = h.transpose(1, 2).reshape(b * k, p, d)
+    mt = None if m_g is None else m_g.transpose(1, 2).reshape(b * k, p)
+    delta = _path(bp.inter, ht, mt, lt, compute_dtype, rate, r2)
+    h = h + delta.reshape(b, k, p, d).transpose(1, 2)
+    if m_g is not None:  # padded positions stay exactly zero downstream
+        h = h * m_g[..., None]
+    return h
+
+
+def dprnn_stack(
+    dprnn: DPRNN,
+    x: torch.Tensor,  # [B, T', F]
+    mask: torch.Tensor | None = None,  # [B, T'] 1 = valid, a prefix
+    chunk_frames: int = 16,
+    compute_dtype: torch.dtype = torch.float32,
+    remat: bool = True,
+    dropout_rate: float = 0.0,
+    rng: DropoutKey | None = None,
+) -> torch.Tensor:
+    """-> ``[B, T', D]``, non-overlapping chunks of ``chunk_frames``."""
+    b, t, _ = x.shape
+    k = chunk_frames
+    h = dense(dprnn.in_proj, x, compute_dtype)
+    d = h.shape[-1]
+    # the BLSTM's lengths on the host, needed only where cuDNN packs
+    lengths = path_lengths(t, k, mask, b) if x.device.type == "cuda" else None
+    h, m_g = pad_to_chunks(h, mask, k)
+    for bp, r in zip(dprnn.blocks, split_key(rng, len(dprnn.blocks))):
+        args = (bp, h, m_g, lengths, compute_dtype, dropout_rate, r)
+        if remat and torch.is_grad_enabled():
+            # the block draws its dropout masks from its key: the recompute
+            # draws the same ones, whatever the global generators hold
+            h = checkpoint(_block, *args, use_reentrant=False, preserve_rng_state=False)
+        else:
+            h = _block(*args)
+    return h.reshape(b, -1, d)[:, :t]

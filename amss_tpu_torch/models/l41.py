@@ -16,6 +16,7 @@ from torch import nn
 
 from amss_tpu_torch.models.base import SeparatorBase
 from amss_tpu_torch.models.blstm import dense, init_dense
+from amss_tpu_torch.models.dprnn import DropoutKey
 from amss_tpu_torch.models.front import _one_hot_last, vad_weights
 from amss_tpu_torch.ops.kmeans import kmeans
 from amss_tpu_torch.utils.config import ModelConfig
@@ -49,9 +50,9 @@ class L41Model(SeparatorBase):
             self.front.init_parameters(generator)
 
     def embed(self, feats: torch.Tensor, frame_mask: torch.Tensor | None = None,
-              training: bool = False) -> torch.Tensor:
+              rng: DropoutKey | None = None) -> torch.Tensor:
         """features [B, T', F] -> tanh embeddings [B, T', F, E]."""
-        h = self.trunk(feats, frame_mask, training)
+        h = self.trunk(feats, frame_mask, rng)
         v = dense(self.proj, h, self.compute_dtype)
         return torch.tanh(v.reshape(*feats.shape, self.cfg.sep.embed_dim))
 
@@ -62,20 +63,20 @@ class L41Model(SeparatorBase):
         return torch.einsum("btfe,bse->btfs", v, cent)
 
     def loss(self, sources: torch.Tensor, speaker_ids: torch.Tensor,
-             training: bool = False) -> tuple[torch.Tensor, dict]:
+             training: bool = False, rng: DropoutKey | None = None) -> tuple[torch.Tensor, dict]:
         """sources [B, S, T] and their global train-set ids [B, S] -> the
         weighted sigmoid cross-entropy over the bins, divided by
         ``max(Σw · S, 1)``."""
-        self.check_no_blstm_dropout(training)
         _, codes, _, _, y, w, _ = self.encode_mix_and_sources(sources, training)
-        v = self.embed(self.front.features(codes), training=training)
+        v = self.embed(self.front.features(codes), rng=rng)
         bce = sigmoid_binary_cross_entropy(self._logits(v, speaker_ids), y)
         loss = (bce * w[..., None]).sum() / torch.clamp(w.sum() * y.shape[-1], min=1.0)
         return loss, {"l41_loss": loss}
 
-    def loss_from_batch(self, batch: dict, training: bool = False):
+    def loss_from_batch(self, batch: dict, training: bool = False,
+                        rng: DropoutKey | None = None):
         """The trainer's entry point: the batch carries ``speaker_ids``."""
-        return self.loss(batch["sources"], batch["speaker_ids"], training)
+        return self.loss(batch["sources"], batch["speaker_ids"], training, rng)
 
     @torch.no_grad()
     def separate(self, mix: torch.Tensor, speaker_ids: torch.Tensor | None = None,

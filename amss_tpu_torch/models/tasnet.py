@@ -14,6 +14,7 @@ from torch import nn
 
 from amss_tpu_torch.models.base import SeparatorBase
 from amss_tpu_torch.models.blstm import dense, init_dense
+from amss_tpu_torch.models.dprnn import DropoutKey
 from amss_tpu_torch.ops.metrics import pit_si_sdr
 from amss_tpu_torch.utils.config import ModelConfig
 
@@ -38,25 +39,26 @@ class TasNetModel(SeparatorBase):
             self.front.init_parameters(generator)
 
     def masks(self, feats: torch.Tensor, frame_mask: torch.Tensor | None = None,
-              training: bool = False) -> torch.Tensor:
+              rng: DropoutKey | None = None) -> torch.Tensor:
         """features [B, T', F] -> sigmoid masks [B, T', F, S], independent per
         source (the waveform loss, not a sum to one, arbitrates overlap)."""
-        h = self.trunk(feats, frame_mask, training)
+        h = self.trunk(feats, frame_mask, rng)
         m = dense(self.proj_mask, h, self.compute_dtype)
         return torch.sigmoid(m.reshape(*feats.shape, self.cfg.nb_speakers))
 
     def _forward(self, mix: torch.Tensor, frame_mask: torch.Tensor | None = None,
-                 training: bool = False) -> torch.Tensor:
+                 rng: DropoutKey | None = None) -> torch.Tensor:
         codes, aux = self.front.encode(mix)
         feats = self.front.features(codes)
-        m = self.masks(feats, frame_mask, training)
+        m = self.masks(feats, frame_mask, rng)
         return self.apply_masks_and_decode(codes, aux, m, mix.shape[-1])
 
-    def loss(self, sources: torch.Tensor, training: bool = False) -> tuple[torch.Tensor, dict]:
+    def loss(self, sources: torch.Tensor, training: bool = False,
+             rng: DropoutKey | None = None) -> tuple[torch.Tensor, dict]:
         """Negative mean PIT SI-SDR of the waveforms separated from the mixture
         of ``sources`` [B, S, T].  Only the mixture is encoded."""
         mix = self.observed_mix(sources, training)
-        est = self._forward(mix, training=training)
+        est = self._forward(mix, rng=rng)
         sdr, _ = pit_si_sdr(est, sources)
         loss = -sdr.mean()
         return loss, {"neg_pit_si_sdr": loss}

@@ -35,7 +35,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from amss_tpu_torch.models.blstm import dense, init_dense
-from amss_tpu_torch.models.dprnn import LayerNorm, dropout, layer_norm
+from amss_tpu_torch.models.dprnn import DropoutKey, LayerNorm, dropout, layer_norm, split_key
 
 
 def prelu(alpha: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -84,9 +84,8 @@ class TCN(nn.Module):
             init_dense(blk.pw_skip, generator)
             for alpha in (blk.a1, blk.a2):
                 alpha.fill_(0.25)
-            for ln in (blk.ln1, blk.ln2):
-                ln.g.fill_(1.0)
-                ln.b.zero_()
+            blk.ln1.reset()
+            blk.ln2.reset()
         self.out_alpha.fill_(0.25)
 
 
@@ -137,7 +136,7 @@ def _depthwise_dilated_streaming(w: torch.Tensor, ctx: torch.Tensor,
 
 def _block(bp: TCNBlock, h: torch.Tensor, m: torch.Tensor | None, dil: int,
            compute_dtype: torch.dtype, causal: bool, dropout_rate: float,
-           training: bool, state: torch.Tensor | None = None):
+           rng: DropoutKey | None, state: torch.Tensor | None = None):
     """One block -> (h', skip), or (h', skip, state') when ``state`` (the
     conv's carried inputs, streaming) is given."""
     u = prelu(bp.a1, dense(bp.pw_in, h, compute_dtype))
@@ -152,7 +151,7 @@ def _block(bp: TCNBlock, h: torch.Tensor, m: torch.Tensor | None, dil: int,
         v = _depthwise_dilated_streaming(bp.dw, ctx, dil)
     v = prelu(bp.a2, v)
     v = layer_norm(bp.ln2, v)
-    res = dropout(dense(bp.pw_res, v, compute_dtype), dropout_rate, training)
+    res = dropout(dense(bp.pw_res, v, compute_dtype), dropout_rate, rng)
     skip = dense(bp.pw_skip, v, compute_dtype)
     hn = h + res
     if m is not None:  # the next block's dilated conv must read exact zeros
@@ -169,23 +168,25 @@ def tcn_stack(
     compute_dtype: torch.dtype = torch.float32,
     remat: bool = False,
     dropout_rate: float = 0.0,
-    training: bool = False,
+    rng: DropoutKey | None = None,
     causal: bool = False,
 ) -> torch.Tensor:
     """-> ``[B, T', bottleneck]``, the PReLU of the skip sum.
 
     With ``remat`` and gradients on, each block's activations are recomputed
-    in the backward (``torch.utils.checkpoint``, as ``jax.checkpoint``)."""
+    in the backward (``torch.utils.checkpoint``, as ``jax.checkpoint``).
+    ``rng`` is the dropout key: each block gets its own, split on the host."""
     xpr = blocks_per_repeat or len(tcn.blocks)
     m = None if mask is None else mask[..., None].to(x.dtype)
     h = dense(tcn.in_proj, x, compute_dtype)
     if m is not None:
         h = h * m
     skip_sum = torch.zeros_like(h)
-    for i, bp in enumerate(tcn.blocks):
-        args = (bp, h, m, 2 ** (i % xpr), compute_dtype, causal, dropout_rate, training)
+    for i, (bp, r) in enumerate(zip(tcn.blocks, split_key(rng, len(tcn.blocks)))):
+        args = (bp, h, m, 2 ** (i % xpr), compute_dtype, causal, dropout_rate, r)
         if remat and torch.is_grad_enabled():
-            # a block draws nothing at random: no generator state to keep
+            # a block draws its dropout mask from its own key, so the
+            # recompute draws the same one: no generator state to keep
             h, skip = checkpoint(_block, *args, use_reentrant=False, preserve_rng_state=False)
         else:
             h, skip = _block(*args)
@@ -214,7 +215,7 @@ def tcn_stack_streaming(
     skip_sum = torch.zeros_like(h)
     new_states = []
     for i, bp in enumerate(tcn.blocks):
-        h, skip, st = _block(bp, h, m, 2 ** (i % xpr), compute_dtype, True, 0.0, False,
+        h, skip, st = _block(bp, h, m, 2 ** (i % xpr), compute_dtype, True, 0.0, None,
                              states[i])
         new_states.append(st)
         skip_sum = skip_sum + skip

@@ -1,8 +1,20 @@
-"""Where one batch call of a serving path, one realtime push, and one train
-step spend their device time.
+"""Where one batch call of a serving path, one realtime push, one count and
+one train step spend their device time.
 
-    python3 -m amss_tpu_torch.tools.stage_times [--recipe c1|c2|c3|c4|c6|c7]          # serving
-    python3 -m amss_tpu_torch.tools.stage_times [--recipe c1|c2|c3|c4|c6|c7] --train  # one step
+    python3 -m amss_tpu_torch.tools.stage_times [--recipe c1|c2|c3|c4|c6|c7|enh]          # serving
+    python3 -m amss_tpu_torch.tools.stage_times [--recipe c1|c2|c3|c4|c6|c7|enh] --train  # one step
+    python3 -m amss_tpu_torch.tools.stage_times --recipe c6 --trunk dprnn|dpt [--train]
+    python3 -m amss_tpu_torch.tools.stage_times --count
+
+``--recipe enh`` refines the separator of ``--base-run`` (default
+``checkpoints/c1_dpcl``) with refiner weights drawn from seed 0, and times
+both stages: the base's ``separate``, the re-encoding of the mixture and the
+estimates, the refined masks and the decode.  ``--trunk`` swaps c6's TCN for
+a dual-path trunk at the width the JAX package's scripts trained it
+(``configs/recipes.py::c6_dual_path``, weights from seed 0), and takes one
+block apart into its intra and inter paths.  ``--count`` times
+``count_speakers`` on ``checkpoints/c1_count``: the encode, the embedding,
+the bin weights and the eigengap (the Gram, ``eigh`` and the argmax).
 
 Serving runs the stages of ``separate`` one by one on the card, on the
 committed weights (``checkpoints/c1_dpcl``, ``c2_adapt`` for c2, ``c3_l41``
@@ -257,17 +269,19 @@ def tasnet_stage_times(recipe: str, batch: int, seconds: int, reps: int) -> dict
     return out
 
 
-def tasnet_train_stage_times(recipe_name: str, reps: int) -> dict:
-    """The stages of one c6 or c7 train step at the recipe's full width."""
-    from amss_tpu_torch.configs.recipes import c6_tasnet, c7_realtime
+def tasnet_train_stage_times(recipe, reps: int) -> dict:
+    """The stages of one train step of a TasNet recipe (c6, c7, or c6 with a
+    dual-path trunk) at its full width; dropout, where the recipe has it,
+    draws from a key."""
     from amss_tpu_torch.models.blstm import dense
+    from amss_tpu_torch.models.dprnn import DropoutKey
     from amss_tpu_torch.ops.metrics import pit_si_sdr
     from amss_tpu_torch.train.engine import make_model
     from amss_tpu_torch.train.optim import Adam, make_schedule
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the default, stated
-    recipe = {"c6": c6_tasnet, "c7": c7_realtime}[recipe_name]()
     t = recipe.train
+    key = DropoutKey(t.seed)
     model = make_model(recipe.model)
     model.init_parameters(torch.Generator().manual_seed(t.seed))
     model = model.cuda().train()
@@ -288,7 +302,8 @@ def tasnet_train_stage_times(recipe_name: str, reps: int) -> dict:
     mix = timed("mix", lambda: model.observed_mix(sources, training=True))
     codes, aux = timed(f"adapt_encode_{kern}_abs_sign", lambda: model.front.encode(mix))
     feats = timed("smooth_log_features", lambda: model.front.features(codes))
-    h = timed("norm_tcn_forward_remat", lambda: model.trunk(feats, training=True))
+    h = timed(f"norm_{recipe.model.sep.trunk}_forward_remat",
+              lambda: model.trunk(feats, rng=key))
     masks = timed("mask_head_sigmoid", lambda: torch.sigmoid(
         dense(model.proj_mask, h, model.compute_dtype).reshape(*feats.shape, 2)))
     est = timed(f"mask_decode_{dec}", lambda: model.apply_masks_and_decode(
@@ -300,14 +315,14 @@ def tasnet_train_stage_times(recipe_name: str, reps: int) -> dict:
     _, times["clip_adam"] = _timed(lambda: opt.step(list(grads)), reps)
 
     def step():
-        loss, _ = model.loss(sources, training=True)
+        loss, _ = model.loss(sources, training=True, rng=key)
         g = torch.autograd.grad(loss, params, allow_unused=True)
         opt.step([torch.zeros_like(p) if x is None else x for x, p in zip(g, params)])
 
     _, whole = _timed(step, reps)
-    return {"device": torch.cuda.get_device_name(0), "recipe": recipe_name,
-            "batch": t.batch_size, "samples": t.chunk_samples, "stage_ms": times,
-            "sum_of_stages_ms": sum(times.values()), "train_step_ms": whole}
+    return {"device": torch.cuda.get_device_name(0), "recipe": recipe.name,
+            "trunk": recipe.model.sep.trunk, "batch": t.batch_size, "samples": t.chunk_samples,
+            "stage_ms": times, "sum_of_stages_ms": sum(times.values()), "train_step_ms": whole}
 
 
 def heads_train_stage_times(recipe_name: str, reps: int) -> dict:
@@ -405,15 +420,223 @@ def train_stage_times(recipe_name: str, reps: int) -> dict:
             "train_step_ms": whole}
 
 
+@torch.no_grad()
+def count_stage_times(batch: int, seconds: int, reps: int) -> dict:
+    """The stages of ``count_speakers`` on checkpoints/c1_count."""
+    from amss_tpu_torch.infer.count import count_speakers, eigengap_counts
+    from amss_tpu_torch.models.front import bin_weights
+
+    model = load_model_from_run(os.path.join(REPO, "checkpoints", "c1_count"))
+    cfg = model.cfg
+    t = seconds * 8000
+    rng = np.random.default_rng(0)
+    mix = torch.from_numpy((rng.standard_normal((batch, t)) * 0.3).astype(np.float32)).cuda()
+    times = {}
+
+    def timed(name, fn):
+        out, times[name] = _timed(fn, reps)
+        return out
+
+    codes, _ = timed(f"stft_encode_{_front_name(cfg)}", lambda: model.front.encode(mix))
+    feats = timed("log_features", lambda: model.front.features(codes))
+    v = timed("norm_blstm_dense_tanh_l2", lambda: model.embed(feats))
+    w = timed("vad_bin_weights", lambda: bin_weights(codes, "vad", cfg.vad_threshold_db))
+    timed("gram_eigh_argmax", lambda: eigengap_counts(v.reshape(batch, -1, cfg.sep.embed_dim),
+                                                      w.reshape(batch, -1)))
+    _, whole = _timed(lambda: count_speakers(model, mix), reps)
+    return {"device": torch.cuda.get_device_name(0), "what": "count_speakers c1_count",
+            "batch": batch, "samples": t, "stage_ms": times,
+            "sum_of_stages_ms": sum(times.values()), "count_ms": whole}
+
+
+def _enh_model(base_run: str):
+    from amss_tpu_torch.configs.recipes import enh_dpcl
+    from amss_tpu_torch.train.engine import make_model
+
+    recipe = enh_dpcl(base_run)
+    model = make_model(recipe.model, base_run, "cuda")
+    model.init_parameters(torch.Generator().manual_seed(recipe.train.seed))
+    return recipe, model.cuda()
+
+
+@torch.no_grad()
+def enh_stage_times(base_run: str, batch: int, seconds: int, reps: int) -> dict:
+    """The stages of the two-stage ``EnhancerModel.separate`` over
+    ``base_run``, with refiner weights drawn from seed 0."""
+    _, model = _enh_model(base_run)
+    model.eval()
+    cfg = model.cfg
+    t = seconds * 8000
+    rng = np.random.default_rng(0)
+    mix = torch.from_numpy((rng.standard_normal((batch, t)) * 0.3).astype(np.float32)).cuda()
+    mask = torch.ones((batch, cfg.front.frames_for(t)), device="cuda")
+    kern = _front_name(cfg)
+    dec = "B2" if kern == "B1" else "plain"
+    times = {}
+
+    def timed(name, fn):
+        out, times[name] = _timed(fn, reps)
+        return out
+
+    est = timed(f"base_separate_{kern}_{dec}", lambda: model.base.separate(mix, frame_mask=mask))
+    codes, aux = timed(f"encode_mix_{kern}", lambda: model.front.encode(mix))
+    est_codes, _ = timed(f"encode_estimates_{kern}", lambda: model.front.encode(est))
+    masks = timed("log_norm_blstm_proj_softmax",
+                  lambda: model.refined_masks(codes, est_codes, mask))
+    timed(f"mask_decode_{dec}", lambda: model.apply_masks_and_decode(codes, aux, masks, t))
+    _, whole = _timed(lambda: model.separate(mix, frame_mask=mask), reps)
+    return {"device": torch.cuda.get_device_name(0), "recipe": "enh",
+            "base_run": os.path.basename(os.path.normpath(base_run)), "batch": batch,
+            "samples": t, "stage_ms": times, "sum_of_stages_ms": sum(times.values()),
+            "separate_ms": whole}
+
+
+def enh_train_stage_times(base_run: str, reps: int) -> dict:
+    """The stages of one enh train step over ``base_run`` at the recipe's
+    width (batch 8 of 16384, msa loss)."""
+    from amss_tpu_torch.models.chimera import msa_pit_loss
+    from amss_tpu_torch.models.front import vad_weights as vad
+    from amss_tpu_torch.train.optim import Adam, make_schedule
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the default, stated
+    recipe, model = _enh_model(base_run)
+    t = recipe.train
+    model.train()
+    params = [p for p in model.parameters() if p.requires_grad]
+    opt = Adam(params, make_schedule(t), t.grad_clip)
+    rng = np.random.default_rng(0)
+    sources = torch.from_numpy(
+        (rng.standard_normal((t.batch_size, 2, t.chunk_samples)) * 0.1).astype(np.float32)).cuda()
+    mix = sources.sum(dim=1)
+    times = {}
+
+    def timed(name, fn):
+        out, times[name] = _timed(fn, reps)
+        return out
+
+    codes, _, est_codes = timed("base_separate_reencode_no_grad",
+                                lambda: model._base_separate_codes(mix))
+    with torch.no_grad():
+        src_codes, _ = timed("encode_sources", lambda: model.front.encode(sources))
+    masks = timed("refined_masks_forward", lambda: model.refined_masks(codes, est_codes))
+    loss = timed("msa_pit_loss", lambda: msa_pit_loss(
+        masks, codes, src_codes, vad(codes, recipe.model.vad_threshold_db)))
+    grads, times["whole_backward"] = _timed(
+        lambda: torch.autograd.grad(loss, params, retain_graph=True), reps)
+    _, times["clip_adam"] = _timed(lambda: opt.step(list(grads)), reps)
+
+    def step():
+        loss, _ = model.loss(sources, training=True)
+        opt.step(list(torch.autograd.grad(loss, params)))
+
+    _, whole = _timed(step, reps)
+    return {"device": torch.cuda.get_device_name(0), "recipe": "enh",
+            "batch": t.batch_size, "samples": t.chunk_samples, "stage_ms": times,
+            "sum_of_stages_ms": sum(times.values()), "train_step_ms": whole}
+
+
+@torch.no_grad()
+def dual_path_stage_times(model, batch: int, seconds: int, reps: int) -> dict:
+    """The stages of ``separate`` of a c6 model with a dual-path trunk, its
+    first block taken apart into the intra and the inter path."""
+    from amss_tpu_torch.models import dprnn, dptransformer
+    from amss_tpu_torch.models.blstm import dense
+    from amss_tpu_torch.models.front import instance_norm
+
+    cfg, cd = model.cfg, model.compute_dtype
+    sep = cfg.sep
+    t = seconds * 8000
+    rng = np.random.default_rng(0)
+    mix = torch.from_numpy((rng.standard_normal((batch, t)) * 0.3).astype(np.float32)).cuda()
+    mask = torch.ones((batch, cfg.front.frames_for(t)), device="cuda")
+    kern = _front_name(cfg)
+    dec = "B2" if kern == "B1" else "plain"
+    times = {}
+
+    def timed(name, fn):
+        out, times[name] = _timed(fn, reps)
+        return out
+
+    codes, aux = timed(f"adapt_encode_{kern}_abs_sign", lambda: model.front.encode(mix))
+    feats = timed("smooth_log_features", lambda: model.front.features(codes))
+    h = timed("instance_norm", lambda: instance_norm(feats, mask))
+    trunk = timed(f"{sep.trunk}_stack", lambda: model.trunk(feats, mask))
+    masks = timed("mask_head_sigmoid", lambda: torch.sigmoid(
+        dense(model.proj_mask, trunk, cd).reshape(*feats.shape, cfg.nb_speakers)))
+    timed(f"mask_decode_{dec}", lambda: model.apply_masks_and_decode(codes, aux, masks, t))
+    _, whole = _timed(lambda: model.separate(mix, frame_mask=mask), reps)
+
+    # the trunk's input product and chunking, then its first block's paths
+    net = getattr(model, sep.trunk)
+    k = sep.chunk_frames
+    parts = {}
+
+    def part(name, fn):
+        out, parts[name] = _timed(fn, reps)
+        return out
+
+    hg, m_g = part("in_proj_dense_pad_chunk", lambda: dprnn.pad_to_chunks(
+        dense(net.in_proj, h, cd), mask, k))
+    b, p, _, d = hg.shape
+    lengths = part("host_lengths_from_mask", lambda: dprnn.path_lengths(h.shape[1], k, mask, b))
+    bp = net.blocks[0]
+    rows = hg.reshape(b * p, k, d)
+    mi = m_g.reshape(b * p, k)
+    cols = hg.transpose(1, 2).reshape(b * k, p, d)
+    mt = m_g.transpose(1, 2).reshape(b * k, p)
+    if sep.trunk == "dprnn":
+        part("intra_blstm", lambda: bp.intra.lstm(rows, mi, lengths=lengths[0]))
+        part("intra_path", lambda: dprnn._path(bp.intra, rows, mi, lengths[0], cd, 0.0, None))
+        part("inter_path", lambda: dprnn._path(bp.inter, cols, mt, lengths[1], cd, 0.0, None))
+        part("block", lambda: dprnn._block(bp, hg, m_g, lengths, cd, 0.0, None))
+    else:
+        part("intra_attention", lambda: dptransformer.mha(bp.intra.attn, rows, mi, sep.heads, cd))
+        part("intra_path", lambda: dptransformer._path(bp.intra, rows, mi, sep.heads, cd, 0.0,
+                                                       None))
+        part("inter_path", lambda: dptransformer._path(bp.inter, cols, mt, sep.heads, cd, 0.0,
+                                                       None))
+        part("block", lambda: dptransformer._block(bp, hg, m_g, sep.heads, cd, 0.0, None))
+    return {"device": torch.cuda.get_device_name(0), "recipe": f"c6_{sep.trunk}",
+            "batch": batch, "samples": t, "frames": int(codes.shape[-2]), "chunk_frames": k,
+            "chunks": p, "stage_ms": times, "sum_of_stages_ms": sum(times.values()),
+            "separate_ms": whole, "trunk_parts_ms": parts, "blocks": len(net.blocks)}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--recipe", choices=["c1", "c2", "c3", "c4", "c6", "c7"], default="c1")
+    ap.add_argument("--recipe", choices=["c1", "c2", "c3", "c4", "c6", "c7", "enh"],
+                    default="c1")
     ap.add_argument("--train", action="store_true", help="one train step instead of serving")
+    ap.add_argument("--trunk", choices=["dprnn", "dpt"], help="c6 with a dual-path trunk")
+    ap.add_argument("--count", action="store_true", help="time count_speakers on c1_count")
+    ap.add_argument("--base-run", default=os.path.join(REPO, "checkpoints", "c1_dpcl"),
+                    help="the separator that --recipe enh refines")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("stage_times needs a CUDA device")
-    if args.recipe in TASNET_RUNS:
-        print(json.dumps(tasnet_train_stage_times(args.recipe, REPS) if args.train
+    if args.trunk and args.recipe != "c6":
+        raise SystemExit("--trunk applies to --recipe c6")
+    if args.count:
+        print(json.dumps(count_stage_times(BATCH, SECONDS, REPS)))
+    elif args.recipe == "enh":
+        print(json.dumps(enh_train_stage_times(args.base_run, REPS) if args.train
+                         else enh_stage_times(args.base_run, BATCH, SECONDS, REPS)))
+    elif args.trunk:
+        from amss_tpu_torch.configs.recipes import c6_dual_path
+        from amss_tpu_torch.train.engine import make_model
+
+        recipe = c6_dual_path(args.trunk)
+        if args.train:
+            print(json.dumps(tasnet_train_stage_times(recipe, REPS)))
+        else:
+            model = make_model(recipe.model)
+            model.init_parameters(torch.Generator().manual_seed(recipe.train.seed))
+            print(json.dumps(dual_path_stage_times(model.cuda().eval(), BATCH, SECONDS, REPS)))
+    elif args.recipe in TASNET_RUNS:
+        from amss_tpu_torch.configs.recipes import c6_tasnet, c7_realtime
+
+        recipe = {"c6": c6_tasnet, "c7": c7_realtime}[args.recipe]()
+        print(json.dumps(tasnet_train_stage_times(recipe, REPS) if args.train
                          else tasnet_stage_times(args.recipe, BATCH, SECONDS, REPS)))
     elif args.recipe in ("c3", "c4"):
         print(json.dumps(heads_train_stage_times(args.recipe, REPS) if args.train

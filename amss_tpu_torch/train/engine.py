@@ -10,9 +10,16 @@ which restores a pretrained front and keeps it frozen for
 ``freeze_front_steps`` (its gradients are scaled by 0 before the clip, so
 Adam's moments and update stay 0 and the front's tensors stay bit for bit
 what was restored), c3 (L41, whose batches carry the speakers' global ids
-from the ``Mixer``'s plan), c4 (Chimera), and c6 and c7 (TasNet, whose loss
-encodes the mixture alone and scores the separated waveforms).  The host draws batches on a
-background thread (``data/prefetch.py``) and ships the sources as int16.
+from the ``Mixer``'s plan), c4 (Chimera), c6 and c7 (TasNet, whose loss
+encodes the mixture alone and scores the separated waveforms; any trunk,
+the dual-path ones included), and enh (the refiner over the frozen separator
+of ``base_run``, whose trainable tree is ``{"separator": {"blstm",
+"proj"}}``).  The host draws batches on a background thread
+(``data/prefetch.py``) and ships the sources as int16.  Training-time
+dropout draws from a ``DropoutKey`` that the Trainer folds from
+``train.seed``, the step and the microbatch, as the JAX package folds its key:
+a seed gives the same masks on a device, and a resumed run draws what an
+unbroken one would have drawn.
 
 A run dir is named ``<recipe>_<run id>`` with the JAX package's run id, and
 holds the same files: ``config.json``, ``corpus.json``, ``metrics.jsonl`` and
@@ -44,26 +51,30 @@ from amss_tpu_torch.data.prefetch import Prefetcher
 from amss_tpu_torch.models.adapt import AdaptAutoencoder
 from amss_tpu_torch.models.chimera import ChimeraModel
 from amss_tpu_torch.models.dpcl import DPCLModel
+from amss_tpu_torch.models.dprnn import DropoutKey
 from amss_tpu_torch.models.l41 import L41Model
 from amss_tpu_torch.models.tasnet import TasNetModel
 from amss_tpu_torch.train.optim import Adam, AdamState, make_schedule
 from amss_tpu_torch.utils.config import ModelConfig, RecipeConfig, recipe_to_dict, run_id
 from amss_tpu_torch.utils.device import resolve_device
 from amss_tpu_torch.utils.logging import MetricWriter
-from amss_tpu_torch.weights import jax_tree, named_from_jax
+from amss_tpu_torch.weights import jax_tree, load_model_from_run, named_from_jax
 
-# model kind -> the slice of the port (ROADMAP A) that brings it
-_LATER = {"enhance": "item 18 (count and enhance)"}
 _MODELS = {"dpcl": DPCLModel, "adapt_ae": AdaptAutoencoder, "tasnet": TasNetModel,
            "l41": L41Model, "chimera": ChimeraModel}
 
 
-def make_model(cfg: ModelConfig) -> torch.nn.Module:
+def make_model(cfg: ModelConfig, base_run: str | None = None, device=None) -> torch.nn.Module:
+    """A model of ``cfg.kind``; an enhance model over the trained separator
+    of the run dir ``base_run``, loaded on ``device``."""
     if cfg.kind in _MODELS:
         return _MODELS[cfg.kind](cfg)
-    if cfg.kind in _LATER:
-        raise NotImplementedError(
-            f"model kind {cfg.kind!r} is not ported yet: ROADMAP {_LATER[cfg.kind]}")
+    if cfg.kind == "enhance":
+        from amss_tpu_torch.models.enhance import EnhancerModel
+
+        if not base_run:
+            raise ValueError("enhance model needs recipe.base_run (run dir)")
+        return EnhancerModel(cfg, load_model_from_run(base_run, device=device))
     raise ValueError(f"unknown model kind {cfg.kind!r}")
 
 
@@ -96,10 +107,6 @@ class Trainer:
         if t.data_axis != 1:
             raise NotImplementedError(
                 f"train.data_axis={t.data_axis}: multi-GPU data parallel is ROADMAP item 23")
-        if recipe.base_run:
-            raise NotImplementedError(
-                "base_run (the enhance model over a trained separator) is not ported yet: "
-                "ROADMAP item 18")
         if t.batch_size % max(t.accum_steps, 1) != 0:
             raise ValueError(
                 f"batch_size {t.batch_size} not divisible by accum_steps {t.accum_steps}")
@@ -111,7 +118,7 @@ class Trainer:
         # the gram products of the loss and every other product run in FP32 on
         # the card (the default, stated); the BLSTM turns cuDNN's TF32 off itself
         torch.backends.cuda.matmul.allow_tf32 = False
-        self.model = make_model(recipe.model).to(self.device)
+        self.model = make_model(recipe.model, recipe.base_run, self.device).to(self.device)
         self.mixer = Mixer(store, nb_speakers=recipe.model.nb_speakers,
                            chunk_samples=t.chunk_samples, seed=t.seed)
         named = [(n, p) for n, p in self.model.named_parameters() if p.requires_grad]
@@ -131,7 +138,7 @@ class Trainer:
         ``train.seed``, zero moments, step 0.  With ``pretrained_front`` set,
         the front's parameters come from that run dir's best checkpoint."""
         gen = torch.Generator().manual_seed(self.recipe.train.seed)
-        model = make_model(self.recipe.model)
+        model = make_model(self.recipe.model, self.recipe.base_run, "cpu")
         model.init_parameters(gen)
         params = {n: p.detach() for n, p in model.named_parameters()}
         if self.recipe.pretrained_front:
@@ -183,15 +190,16 @@ class Trainer:
         numpy arrays and optax's state ``(clip, (adam, schedule))``, each tuple
         a map keyed by index as flax writes it."""
         opt = state["opt_state"]
+        wf = self.recipe.model.kind != "enhance"  # the enhancer's tree has no front
         adam = {"count": np.asarray(opt["count"], np.int32),
-                "mu": jax_tree(opt["mu"]), "nu": jax_tree(opt["nu"])}
+                "mu": jax_tree(opt["mu"], with_front=wf), "nu": jax_tree(opt["nu"], with_front=wf)}
         sched = ({"count": np.asarray(opt["count"], np.int32)}
                  if self.recipe.train.lr_schedule == "cosine" else {})
-        tree = {"params": jax_tree(state["params"]),
+        tree = {"params": jax_tree(state["params"], with_front=wf),
                 "opt_state": {"0": {}, "1": {"0": adam, "1": sched}},
                 "step": int(state["step"])}
         if "ema_params" in state:
-            tree["ema_params"] = jax_tree(state["ema_params"])
+            tree["ema_params"] = jax_tree(state["ema_params"], with_front=wf)
         return tree
 
     def state_from_tree(self, tree: dict) -> dict:
@@ -270,12 +278,17 @@ class Trainer:
                 json.dump({"corpus_root": self._corpus_root}, f, indent=1)
 
     # -- the step ----------------------------------------------------------
+    def dropout_key(self, step: int) -> DropoutKey:
+        """The dropout key of ``step``: ``train.seed`` folded with the step."""
+        return DropoutKey(self.recipe.train.seed).fold_in(step)
+
     def _train_step(self, batch: dict, front_grad_scale: float = 1.0) -> dict:
         """One optimiser step on a device batch; returns the metrics as
         tensors (nothing here waits for the device).  With ``accum_steps`` >
         1 the gradients and metrics are the means over that many
-        microbatches."""
+        microbatches, each with its own dropout key."""
         t = self.recipe.train
+        key = self.dropout_key(self.step)
         accum = max(t.accum_steps, 1)
         full = self._dequantize(batch)
         mb_size = full["sources"].shape[0] // accum
@@ -285,7 +298,7 @@ class Trainer:
         msum: dict = {}
         for i in range(accum):
             mb = {k: v[i * mb_size : (i + 1) * mb_size] for k, v in full.items()}
-            loss, metrics = self.model.loss_from_batch(mb, training=True)
+            loss, metrics = self.model.loss_from_batch(mb, training=True, rng=key.fold_in(i))
             loss.backward()
             for k, v in metrics.items():
                 msum[k] = msum[k] + v.detach() if k in msum else v.detach()

@@ -7,12 +7,20 @@ and ``{enc, dec, smooth}`` for the adaptive front, in the port's layouts;
 the autoencoder's tree has the front alone.  The separator is
 
 * a trunk: ``{"blstm": layers}``, each BLSTM layer ``{"fwd": {wx, wh, b},
-  "bwd": {...}}``, in one ``nn.LSTM``; or ``{"tcn": {in_proj, blocks,
+  "bwd": {...}}``, in one ``nn.LSTM``; ``{"tcn": {in_proj, blocks,
   out_alpha}}``, each block ``{pw_in, a1, ln1: {g, b}, dw, a2, ln2, pw_res,
   pw_skip}``, under the same names in the port (``tcn.blocks.<i>.ln1.g``);
+  ``{"dprnn": {in_proj, blocks}}``, each block ``{intra, inter}`` of
+  ``{lstm: {fwd, bwd}, proj, ln}``, the one-layer ``lstm`` in a ``BLSTM``
+  (``dprnn.blocks.<i>.intra.lstm.lstm.weight_ih_l0``); or ``{"dpt":
+  {in_proj, blocks}}``, each path ``{ln1, attn: {wq, wk, wv, wo}, ln2, ffn:
+  {w1, w2}}``;
 * the heads beside it, under their names: deep clustering ``proj``, L41
   ``proj`` and ``centroids [n_train_speakers, E]``, Chimera ``proj_embed``
   and ``proj_mask``, TasNet (c6, and c7 with ``causal=True``) ``proj_mask``.
+
+The enhancer's tree is ``{"separator": {"blstm", "proj"}}`` alone, with no
+front: its base comes from the run dir that its config's ``base_run`` names.
 
 A dense ``{w [in, out], b}`` is an ``nn.Linear`` with ``weight = wᵀ``.  A
 checkpoint keys a list's entries "0", "1", ...; the port's names are those
@@ -29,6 +37,7 @@ import torch
 from amss_tpu_torch.ckpt.checkpoint import load_params
 from amss_tpu_torch.models.chimera import ChimeraModel
 from amss_tpu_torch.models.dpcl import DPCLModel
+from amss_tpu_torch.models.enhance import EnhancerModel
 from amss_tpu_torch.models.l41 import L41Model
 from amss_tpu_torch.models.tasnet import TasNetModel
 from amss_tpu_torch.utils.config import ModelConfig, recipe_from_dict
@@ -36,7 +45,7 @@ from amss_tpu_torch.utils.device import resolve_device
 
 _MODELS = {"dpcl": DPCLModel, "tasnet": TasNetModel, "l41": L41Model,
            "chimera": ChimeraModel}
-Separator = DPCLModel | TasNetModel | L41Model | ChimeraModel
+Separator = DPCLModel | TasNetModel | L41Model | ChimeraModel | EnhancerModel
 
 
 def _t(a) -> torch.Tensor:
@@ -68,6 +77,8 @@ def _flatten(tree, prefix: str) -> dict:
         tree = {str(i): v for i, v in enumerate(tree)}
     if not isinstance(tree, dict):
         return {prefix[:-1]: _t(tree)}
+    if set(tree) == {"fwd", "bwd"}:  # one BLSTM layer of a dual-path block
+        return {f"{prefix}lstm.{k}": v for k, v in lstm_state([tree]).items()}
     if set(tree) == {"w", "b"}:
         return {prefix + "weight": _t(tree["w"]).T, prefix + "bias": _t(tree["b"])}
     out = {}
@@ -77,10 +88,10 @@ def _flatten(tree, prefix: str) -> dict:
 
 
 def named_from_jax(tree: dict) -> dict:
-    """The port's named tensors (``front.*``, then ``blstm.lstm.*`` or
-    ``tcn.*``, then the heads' ``proj.*``, ``centroids``, ``proj_embed.*``,
-    ``proj_mask.*``) from a JAX parameter tree, ``bias_hh`` included as
-    zeros."""
+    """The port's named tensors (``front.*``, then ``blstm.lstm.*``,
+    ``tcn.*``, ``dprnn.*`` or ``dpt.*``, then the heads' ``proj.*``,
+    ``centroids``, ``proj_embed.*``, ``proj_mask.*``) from a JAX parameter
+    tree, ``bias_hh`` included as zeros."""
     named = {"front." + k: _t(v) for k, v in tree.get("front", {}).items()}
     sep = tree.get("separator")
     if sep is None:
@@ -116,51 +127,76 @@ def _unflatten(named: dict) -> dict:
     return tree
 
 
-def jax_tree(named: dict, layers: int | None = None) -> dict:
-    """The JAX tree, as numpy arrays, of named tensors laid out as the port's
-    parameters: the parameters themselves, or Adam's moments or gradients of
-    them.  For the BLSTM ``b = bias_ih + bias_hh`` where both are present,
-    else ``bias_ih``, over ``layers`` layers (by default as many as the names
-    hold).  Without a head (the autoencoder) the tree has the front alone."""
-    front = {n[len("front."):]: _np(v) for n, v in named.items() if n.startswith("front.")}
-    sep = _unflatten({n: v for n, v in named.items()
-                      if not n.startswith(("front.", "blstm."))})
-    if not any(n.startswith("blstm.") for n in named):
-        return {"front": front, "separator": sep} if sep else {"front": front}
-    if layers is None:
-        layers = sum(1 for n in named if n.startswith("blstm.lstm.weight_ih_l")
-                     and not n.endswith("_reverse"))
-    blstm = {}
+def _lstm_layers(named: dict, pre: str, layers: int) -> dict:
+    """BLSTM layers ``{"0": {"fwd": {wx, wh, b}, "bwd": ...}, ...}`` from the
+    ``nn.LSTM`` tensors named ``pre + weight_ih_l0`` and so on."""
+    out = {}
     for i in range(layers):
         layer = {}
         for direction, sfx in (("fwd", f"_l{i}"), ("bwd", f"_l{i}_reverse")):
-            pre = "blstm.lstm."
             b = named[pre + "bias_ih" + sfx]
             if pre + "bias_hh" + sfx in named:
                 b = b + named[pre + "bias_hh" + sfx]
             layer[direction] = {"wx": _np(named[pre + "weight_ih" + sfx].T),
                                 "wh": _np(named[pre + "weight_hh" + sfx].T), "b": _np(b)}
-        blstm[str(i)] = layer
-    return {"front": front, "separator": {"blstm": blstm, **sep}}
+        out[str(i)] = layer
+    return out
+
+
+def jax_tree(named: dict, layers: int | None = None, with_front: bool = True) -> dict:
+    """The JAX tree, as numpy arrays, of named tensors laid out as the port's
+    parameters: the parameters themselves, or Adam's moments or gradients of
+    them.  For a BLSTM ``b = bias_ih + bias_hh`` where both are present, else
+    ``bias_ih``; the trunk's stack ``blstm`` has ``layers`` layers (by default
+    as many as the names hold), a dual-path block's ``lstm`` is one layer.
+    Without a head (the autoencoder) the tree has the front alone; without
+    ``with_front`` (the enhancer) the separator alone."""
+    front = {n[len("front."):]: _np(v) for n, v in named.items() if n.startswith("front.")}
+    rest = {n: v for n, v in named.items() if not n.startswith("front.")}
+    key = ".lstm.weight_ih_l0"
+    lstms = sorted({n[: n.index(key)] for n in rest if key in n})
+    sep = _unflatten({n: v for n, v in rest.items()
+                      if not any(n.startswith(p + ".lstm.") for p in lstms)})
+    for p in lstms:
+        if p == "blstm":
+            n_layers = layers or sum(1 for n in rest if n.startswith("blstm.lstm.weight_ih_l")
+                                     and not n.endswith("_reverse"))
+            sep["blstm"] = _lstm_layers(rest, "blstm.lstm.", n_layers)
+            continue
+        *path, leaf = p.split(".")
+        node = sep
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = _lstm_layers(rest, p + ".lstm.", 1)["0"]
+    if not with_front:
+        return {"separator": sep}
+    return {"front": front, "separator": sep} if sep else {"front": front}
 
 
 def params_to_jax(model: Separator) -> dict:
     """The inverse of ``params_from_jax``: the model's parameters as the JAX
     package's tree of numpy arrays, in the checkpoint's layout."""
-    return jax_tree(dict(model.named_parameters()))
+    return jax_tree(dict(model.named_parameters()),
+                    with_front=not isinstance(model, EnhancerModel))
 
 
-def params_from_jax(cfg: ModelConfig, params: dict, device=None) -> Separator:
-    """The model of ``cfg.kind`` (``dpcl``, ``tasnet``, ``l41`` or
-    ``chimera``) holding a JAX
-    parameter tree given as numpy arrays (lists, or dicts keyed "0", "1", ...
-    as a checkpoint stores them).  Each LSTM direction maps as ``weight_ih =
-    wxᵀ``, ``weight_hh = whᵀ``, ``bias_ih = b``, ``bias_hh = 0``; each dense
-    as ``weight = wᵀ``; everything else as it is."""
+def params_from_jax(cfg: ModelConfig, params: dict, device=None,
+                    base: Separator | None = None) -> Separator:
+    """The model of ``cfg.kind`` (``dpcl``, ``tasnet``, ``l41``, ``chimera``,
+    or ``enhance`` over ``base``) holding a JAX parameter tree given as numpy
+    arrays (lists, or dicts keyed "0", "1", ... as a checkpoint stores them).
+    Each LSTM direction maps as ``weight_ih = wxᵀ``, ``weight_hh = whᵀ``,
+    ``bias_ih = b``, ``bias_hh = 0``; each dense as ``weight = wᵀ``;
+    everything else as it is."""
     device = resolve_device(device)
-    if cfg.kind not in _MODELS:
-        raise NotImplementedError(f"model kind {cfg.kind!r} is not ported yet")
-    model = _MODELS[cfg.kind](cfg)
+    if cfg.kind == "enhance":
+        if base is None:
+            raise ValueError("an enhance model needs its base separator")
+        model = EnhancerModel(cfg, base)
+    elif cfg.kind in _MODELS:
+        model = _MODELS[cfg.kind](cfg)
+    else:
+        raise ValueError(f"model kind {cfg.kind!r} has no separator to load")
     sep = params["separator"]
     if "blstm" in sep and len(sep["blstm"]) != cfg.sep.layers:
         raise ValueError(f"{len(sep['blstm'])} BLSTM layers in the params, config says "
@@ -173,8 +209,15 @@ def params_from_jax(cfg: ModelConfig, params: dict, device=None) -> Separator:
 
 
 def load_model_from_run(run_dir: str, device=None) -> Separator:
-    """Rebuild a trained model from a run dir (config.json + best checkpoint)."""
+    """Rebuild a trained model from a run dir (config.json + best checkpoint).
+    An enhance run's base is rebuilt from the ``base_run`` its config
+    records, recursively for stacked stages."""
     device = resolve_device(device)
     with open(os.path.join(run_dir, "config.json")) as f:
         recipe = recipe_from_dict(json.load(f))
-    return params_from_jax(recipe.model, load_params(run_dir), device=device)
+    base = None
+    if recipe.model.kind == "enhance":
+        if not recipe.base_run:
+            raise ValueError(f"enhance run {run_dir} records no base_run")
+        base = load_model_from_run(recipe.base_run, device=device)
+    return params_from_jax(recipe.model, load_params(run_dir), device=device, base=base)

@@ -82,7 +82,28 @@ Phases, each printing its wall seconds:
    synthetic v1 corpus of C4_SPEAKERS x TRAIN_SECONDS s; the trained state
    served through ``StreamingSeparator`` as in phase 3 and on three-speaker
    mixtures (B1 and B2 counted), and on the card against the port on the CPU
-   (C4_CARD_CPU_MIN_DB).
+   (C4_CARD_CPU_MIN_DB);
+17. counting: ``checkpoints/c1_count`` counts COUNT_N mixtures of each of 1, 2
+   and 3 speakers (the test split of the v2 corpus of 30 x 40 s from seed 0)
+   on the card and on the CPU: the accuracy per k (COUNT_MIN_ACC), the
+   confusion matrix, and the card's counts against the CPU's
+   (COUNT_AGREE_MIN); then auto-k (``infer/count.py::separate_auto_k``) on
+   AUTOK_N of each, the SI-SDRi of the correctly counted at k = 2 and 3
+   (AUTOK_MIN_DB); B1 and B2 counted on both paths;
+18. enhancement: the enh recipe over ``checkpoints/c1_dpcl`` at full width
+   (1 x 128 BLSTM, batch 8 x 16384) for ENH_STEPS steps with phase 5's checks
+   (its first step against the CPU's from one first pass), the base bit for
+   bit frozen, the two stages at init near the base alone (ENH_INIT_MIN_DB),
+   the trained state served on phase 4's protocol (QUALITY_MIN_DB) and on
+   the card against the CPU; B1 3 and B2 2 launches a separate call;
+19. the BLSTM stack's dropout on the card (cuDNN a layer at a time) against
+   the loop with the same masks; c6 with the DPRNN trunk (width 128, 6
+   blocks, K = 32) at full width for DP_STEPS steps with phase 5's checks, served on the card against the CPU
+   with a padded utterance in its bucket, and one separate call's stages;
+   B1 and B2 launch 0 times (the gate is closed at 32/16);
+20. c6 with the DPT trunk (width 192, 6 blocks, 4 heads, dropout 0.1) as
+   phase 19, its first step against the CPU at rate 0 and its training at
+   0.1.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero,
@@ -239,6 +260,60 @@ C3_STEPS = 200
 C4_SPEAKERS = 60
 C4_STEPS = 200
 C4_CARD_CPU_MIN_DB = 40.0
+
+# phase 17: blind counting on checkpoints/c1_count (2x300 BLSTM, E = 20,
+# trained on mixtures of 1-3 speakers), COUNT_N mixtures of each of k = 1, 2
+# and 3 speakers drawn as scripts/r3_wave.py::test_mixtures draws them: the
+# test split of the synthetic v2 corpus of 30 x 40 s from seed 0, Mixer seed 0,
+# steps 0 on, batch 1.  The JAX package counts them right at 0.98, 1.00 and
+# 0.84 (confusion {1: {1: 49, 2: 1}, 2: {2: 50}, 3: {1: 2, 2: 6, 3: 42}}) in
+# float32 on the CPU (python tests/test_torch_count.py).  Each gate is that
+# accuracy less 0.06, three mixtures of 50: the card may count up to 2% of the
+# 150 otherwise than the CPU (COUNT_AGREE_MIN), where cuSOLVER's eigenvalues
+# and LAPACK's break a near-tie of two gaps apart
+C1_COUNT = os.path.join(REPO, "checkpoints", "c1_count")
+COUNT_N = 50
+COUNT_MIN_ACC = {1: 0.92, 2: 0.94, 3: 0.78}
+COUNT_AGREE_MIN = 0.98
+# auto-k (infer/count.py::separate_auto_k, the CLI's --num-speakers auto) on the
+# first AUTOK_N mixtures of each k: the JAX package's SI-SDRi of the correctly
+# counted (scripts/r3_wave.py::count_sep_eval_model) is 12.787 dB [12.165,
+# 13.419] at k = 2 (32 of 32 counted right) and 10.645 dB [10.231, 11.026] at
+# k = 3 (26 of 32); each gate sits at the lower end of its interval
+AUTOK_N = 32
+AUTOK_MIN_DB = {2: 12.16, 3: 10.23}
+
+# phase 18: the enh recipe (a 1 x 128 BLSTM refining checkpoints/c1_dpcl) at
+# full width, cut to ENH_STEPS steps on phase 5's corpus.  At init the refiner
+# is near the identity: the JAX package's init puts the two-stage output
+# 22.07 dB SI-SDR from the base's at least (26.63 dB on average) on eight of
+# phase 4's mixtures, and scores 6.317 dB on phase 4's protocol against the
+# base's 6.396 (python tests/test_torch_enhance.py); the port's init is held at
+# ENH_INIT_MIN_DB.  The trained state is served on phase 4's protocol and gated
+# at c1's QUALITY_MIN_DB.  The base's k-means seeds on a tie that rounding
+# breaks (ROADMAP C.2), so the card and the CPU are compared twice: the second
+# stage given one first pass (ENH_STAGE_CARD_CPU_MIN_DB, float32 on both
+# sides), and the whole two-stage output in the best speaker order (the two
+# may seed in another order) at the bound c1 keeps against the JAX package
+# (tests/test_torch_dpcl_slice.py)
+ENH_STEPS = 200
+ENH_INIT_MIN_DB = 18.0
+ENH_STAGE_CARD_CPU_MIN_DB = 40.0
+ENH_CARD_CPU_MIN_DB = 30.0
+
+# phases 19 and 20: c6 with the DPRNN trunk (width 128, 6 blocks) and the DPT
+# trunk (width 192, 6 blocks, 4 heads, dropout 0.1) at full width
+# (configs/recipes.py::c6_dual_path), cut to DP_STEPS steps on phase 5's
+# corpus; the trained state served on the card against the CPU at
+# C4_CARD_CPU_MIN_DB, with one utterance padded in its bucket
+DP_STEPS = 200
+DP_PADDED_SAMPLES = 12000
+# and phase 19 holds the BLSTM stack's dropout (cuDNN a layer at a time) to
+# the step-by-step loop on the card with the same masks, float32 on both: the
+# output to 1e-4 of its peak (8.7e-6 seen), the input's gradient to phase 5's
+# STEP_GRAD_TOL (3.3e-4 seen: sums through 50 steps and two layers in other
+# orders; a wrong mask is off by order 1)
+BLSTM_DROPOUT_TOL = 1e-4
 
 # name -> (source, the TPU kernel it replaces, its design)
 KERNELS = {
@@ -767,19 +842,33 @@ def unread_parameters(model) -> set:
     """The trainable parameters whose gradient is None because the loss never
     reads them: the autoencoder's smoothing filter (its loss never reads the
     features), and TasNet's last residual conv (only the last block's skip
-    output reaches the masks)."""
+    output reaches the masks; the dual-path trunks read all theirs)."""
     if model.cfg.kind == "adapt_ae":
         return {"front.smooth"}
-    if model.cfg.kind == "tasnet":
+    if model.cfg.kind == "tasnet" and model.cfg.sep.trunk == "tcn":
         last = f"tcn.blocks.{len(model.tcn.blocks) - 1}.pw_res."
         return {last + "weight", last + "bias"}
     return set()
 
 
-def first_step_matches_cpu(tr, state0: dict, batch0, grad_tol: float = STEP_GRAD_TOL) -> dict:
+def cancelled_gradients(model) -> set:
+    """The trainable parameters whose gradient is 0 in exact arithmetic, so
+    that what either side computes is rounding noise: a bias that adds the
+    same logit to every entry a softmax normalises over (the enhancer's delta
+    projection, over the sources; the DPT's key projection, over a query's
+    keys).  Their error is held against the largest gradient of all."""
+    if model.cfg.kind == "enhance":
+        return {"proj.bias"}
+    return {n for n, _ in model.named_parameters() if n.endswith(".attn.wk.bias")}
+
+
+def first_step_matches_cpu(tr, state0: dict, batch0, grad_tol: float = STEP_GRAD_TOL,
+                           prepare=None) -> dict:
     """The card's first step against the same step on the CPU through the
     port's plain path (plain kernels, the BLSTM as a loop), from the same init
-    and batch: the loss, each term of it, and every gradient.
+    and batch: the loss, each term of it, and every gradient.  Neither side
+    has a dropout key, so dropout is off on both.  ``prepare(model, device)``
+    runs on each model before its step.
 
     The autoencoder's loss, -SI-SDR + 10 L2, nearly cancels at init (about
     0.007 from terms of about 1.2), so it is held relative to the size of its
@@ -788,6 +877,8 @@ def first_step_matches_cpu(tr, state0: dict, batch0, grad_tol: float = STEP_GRAD
 
     def loss_and_grads(model, device):
         model.train()
+        if prepare is not None:
+            prepare(model, device)
         batch = tr._dequantize({k: v.to(device) for k, v in tr._device_batch(batch0).items()})
         loss, metrics = model.loss_from_batch(batch, training=True)
         loss.backward()
@@ -799,7 +890,7 @@ def first_step_matches_cpu(tr, state0: dict, batch0, grad_tol: float = STEP_GRAD
     loss_gpu, terms_gpu, grads_gpu = loss_and_grads(tr.model, tr.device)
     for p in tr.model.parameters():
         p.grad = None
-    cpu = make_model(tr.recipe.model)
+    cpu = make_model(tr.recipe.model, tr.recipe.base_run, "cpu")
     # the state holds every parameter; the CPU twin builds its own buffers
     # (the fixed STFT bases) and nothing else may be left out
     keys = cpu.load_state_dict({n: v.cpu() for n, v in state0["params"].items()}, strict=False)
@@ -831,17 +922,20 @@ def first_step_matches_cpu(tr, state0: dict, batch0, grad_tol: float = STEP_GRAD
             raise AssertionError(f"first step on the {where}: no gradient for "
                                  f"{sorted(missing)}, want none for {sorted(no_grad)}")
     worst = 0.0
+    cancelled = cancelled_gradients(tr.model)
+    top = max(float(g.abs().max()) for g in grads_cpu.values() if g is not None)
     for n, g in grads_cpu.items():
         if g is None:
             continue
-        scale = float(g.abs().max())
+        scale = top if n in cancelled else float(g.abs().max())
         err = max_err(grads_gpu[n], g) / scale
         worst = max(worst, err)
         if not err <= grad_tol:
             raise AssertionError(f"first step gradient {n}: {err:.3e} of {scale:.3g} "
                                  f"> {grad_tol}")
     say(f"  first step: {len(grads_cpu) - len(no_grad)} gradients, worst {worst:.2e} of each tensor's "
-        f"largest CPU magnitude (tol {grad_tol:g})")
+        f"largest CPU magnitude (tol {grad_tol:g}; {len(cancelled)} whose exact gradient is 0 "
+        f"held against the largest of all, {top:.3g})")
     return dict(loss_card=loss_gpu, loss_cpu=loss_cpu, loss_rel_err=rel, grad_worst_rel_err=worst)
 
 
@@ -1710,6 +1804,327 @@ def phase_c4(workdir: str) -> tuple[dict, dict]:
     return out, launches
 
 
+def count_mixtures(store, k: int, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """scripts/r3_wave.py::test_mixtures: (mixtures [n, T], sources [n, k, T])."""
+    from amss_tpu_torch.data.mixer import Mixer
+
+    mixer = Mixer(store, nb_speakers=k, chunk_samples=QUALITY_T, seed=0)
+    refs = np.stack([mixer.batch("test", i, 1).sources[0] for i in range(n)])
+    return refs.sum(axis=1), refs
+
+
+def _separator_calls(n: int) -> int:
+    """A StreamingSeparator's batch calls for ``n`` utterances of one bucket:
+    one a batch of BATCH, and one warm-up for each batch size."""
+    sizes = {min(BATCH, n - i) for i in range(0, n, BATCH)}
+    return -(-n // BATCH) + len(sizes)
+
+
+def phase_count() -> tuple[dict, dict]:
+    """c1_count on mixtures of 1, 2 and 3 speakers, card against CPU, then
+    auto-k serving; returns (results, launches by path)."""
+    from amss_tpu_torch.data.synthetic import SyntheticStore
+    from amss_tpu_torch.infer.count import count_speakers, separate_auto_k
+    from amss_tpu_torch.infer.streaming import BucketSpec
+    from amss_tpu_torch.ops.metrics import sdr_improvement
+    from amss_tpu_torch.weights import load_model_from_run
+
+    t0 = time.perf_counter()
+    store = SyntheticStore(n_speakers=30, seconds_per_speaker=40.0, seed=0, version=2)
+    data = {k: count_mixtures(store, k, max(COUNT_N, AUTOK_N)) for k in (1, 2, 3)}
+    say(f"  {COUNT_N} mixtures of each k from the v2 corpus of 30 x 40 s: "
+        f"{time.perf_counter() - t0:.2f} s")
+    model = load_model_from_run(C1_COUNT)
+    cpu = load_model_from_run(C1_COUNT, device="cpu")
+
+    def counts(m, mixes, dev):
+        return np.concatenate([
+            count_speakers(m, torch.from_numpy(mixes[i : i + BATCH]).to(dev)).cpu().numpy()
+            for i in range(0, COUNT_N, BATCH)])
+
+    reset_launches()
+    card = {k: counts(model, mixes[:COUNT_N], "cuda") for k, (mixes, _) in data.items()}
+    launches = {"count": launch_counts()}
+    calls = 3 * -(-COUNT_N // BATCH)
+    if launches["count"] != {"framed_matmul": calls, "decode_ola": 0}:
+        raise AssertionError(f"counting launched {launches['count']}, want B1 {calls} times")
+    t0 = time.perf_counter()
+    host = {k: counts(cpu, mixes[:COUNT_N], "cpu") for k, (mixes, _) in data.items()}
+    cpu_s = time.perf_counter() - t0
+    differ = [(k, i, int(card[k][i]), int(host[k][i])) for k in card
+              for i in np.flatnonzero(card[k] != host[k])]
+    agree = 1.0 - len(differ) / (3 * COUNT_N)
+    say(f"  card against CPU: {agree:.4f} of {3 * COUNT_N} counts equal (gate {COUNT_AGREE_MIN}); "
+        f"differing (true k, mixture, card, CPU): {differ}")
+    if not agree >= COUNT_AGREE_MIN:
+        raise AssertionError(f"the card counts {differ} otherwise than the CPU")
+    acc = {k: float(np.mean(card[k] == k)) for k in card}
+    confusion = {k: {int(a): int(c) for a, c in zip(*np.unique(card[k], return_counts=True))}
+                 for k in card}
+    say(f"  count accuracy on the card {acc} (gates {COUNT_MIN_ACC}), confusion {confusion}, "
+        f"launches {launches['count']}")
+    for k, a in acc.items():
+        if not a >= COUNT_MIN_ACC[k]:
+            raise AssertionError(f"count accuracy at k = {k}: {a} < {COUNT_MIN_ACC[k]}")
+
+    waves = [m for k in (1, 2, 3) for m in data[k][0][:AUTOK_N]]
+    true_k = [k for k in (1, 2, 3) for _ in range(AUTOK_N)]
+    reset_launches()
+    t0 = time.perf_counter()
+    ks, ests, rtf = separate_auto_k(model, waves, buckets=BucketSpec(lengths=(QUALITY_T,)))
+    autok_s = time.perf_counter() - t0
+    launches["auto_k"] = launch_counts()
+    groups = [ks.count(k) for k in sorted(set(ks))]
+    want = {"framed_matmul": len(waves) + sum(map(_separator_calls, groups)),
+            "decode_ola": sum(map(_separator_calls, groups))}
+    if launches["auto_k"] != want:
+        raise AssertionError(f"auto-k launched {launches['auto_k']}, want {want}")
+    autok = {}
+    for k in (2, 3):
+        idx = [i for i, (kt, ke) in enumerate(zip(true_k, ks)) if kt == k and ke == k]
+        imp = np.array([float(sdr_improvement(
+            torch.from_numpy(ests[i][None]).double(),
+            torch.from_numpy(data[k][1][i - true_k.index(k)][None]).double(),
+            torch.from_numpy(waves[i][None]).double())[0]) for i in idx])
+        boot = np.random.default_rng(0).choice(imp, size=(10000, imp.size)).mean(axis=1)
+        autok[k] = dict(si_sdri_db=float(imp.mean()), n=int(imp.size),
+                        count_acc=float(imp.size / AUTOK_N),
+                        ci95=[float(v) for v in np.percentile(boot, [2.5, 97.5])])
+    say(f"  auto-k ({AUTOK_N} mixtures of each k, counted one at a time, then one separator "
+        f"per count): groups {dict(zip(sorted(set(ks)), groups))}, si_sdri of the correctly "
+        f"counted {autok} (gates {AUTOK_MIN_DB}), rtf {rtf:.6f}, {autok_s:.2f} s, launches "
+        f"{launches['auto_k']}")
+    for k, r in autok.items():
+        if not r["si_sdri_db"] >= AUTOK_MIN_DB[k]:
+            raise AssertionError(f"auto-k SI-SDRi at k = {k}: {r['si_sdri_db']:.3f} dB")
+    out = dict(n=COUNT_N, accuracy=acc, confusion=confusion, card_cpu_agreement=agree,
+               card_cpu_differ=differ, cpu_count_s=cpu_s, auto_k=autok, auto_k_rtf=rtf,
+               auto_k_s=autok_s, auto_k_groups=groups)
+    return out, launches
+
+
+class FixedFirstPass:
+    """Stands for an enhancer's base: ``separate`` returns ``est`` whatever it
+    is given; everything else is the base's."""
+
+    def __init__(self, base, est: torch.Tensor):
+        self.base, self.est = base, est
+
+    def separate(self, mix, frame_mask=None):
+        return self.est
+
+    def __getattr__(self, name):
+        return getattr(self.base, name)
+
+
+def _db(a: np.ndarray, b: np.ndarray, best_order: bool = False) -> np.ndarray:
+    """SI-SDR of ``a`` [n, S, T] against ``b`` per utterance (mean over
+    sources), in the given source order or in the best one (k-means names
+    its clusters in the order it seeds them)."""
+    import itertools
+
+    from amss_tpu_torch.ops.metrics import si_sdr
+
+    a, b = torch.from_numpy(a).double(), torch.from_numpy(b).double()
+    orders = itertools.permutations(range(a.shape[1])) if best_order else [range(a.shape[1])]
+    return torch.stack([si_sdr(a[:, list(p)], b).mean(-1) for p in orders]).amax(0).numpy()
+
+
+def phase_enh(store, workdir: str, base_quality: dict) -> tuple[dict, dict]:
+    """The enh recipe over checkpoints/c1_dpcl at full width with phase 5's
+    checks, the frozen base, the refiner at init, and the trained state
+    served; returns (results, launches by path)."""
+    from amss_tpu_torch.configs.recipes import enh_dpcl
+    from amss_tpu_torch.train.engine import Trainer
+    from amss_tpu_torch.weights import load_model_from_run
+
+    recipe = enh_dpcl(CKPT, steps=ENH_STEPS, valid_every=ENH_STEPS // 2)
+    t = recipe.train
+    tr = Trainer(recipe, store, workdir=os.path.join(workdir, "runs"))
+    say(f"  run dir {os.path.basename(tr.dir)}")
+    base = tr.model.base
+    frozen = {n: p.detach().clone() for n, p in base.named_parameters()}
+    state0 = tr.init_state()
+    batch0 = tr.mixer.batch("train", 0, t.batch_size)
+
+    # the first step, card against CPU, from one first pass (the card's)
+    mix0 = tr._dequantize(tr._device_batch(batch0))["sources"].sum(dim=1)
+    est0 = base.separate(mix0)
+    cpu_base = load_model_from_run(CKPT, device="cpu")
+    base_db = _db(est0.cpu().numpy(), cpu_base.separate(mix0.cpu()).numpy(), best_order=True)
+    say(f"  the base's first pass on the card against the CPU's, best speaker order: SI-SDR "
+        f"{[round(float(v), 2) for v in base_db]} dB (k-means seeding tie, ROADMAP C.2)")
+
+    def one_first_pass(model, device):
+        model._frozen[0] = FixedFirstPass(model.base, est0.to(device))
+
+    step_check = first_step_matches_cpu(tr, state0, batch0, prepare=one_first_pass)
+    tr.model._frozen[0] = base
+    per_step = check_train_step_needs_no_host_sync(tr, batch0)
+    if per_step != {"framed_matmul": 4, "decode_ola": 1}:
+        raise AssertionError(f"an enh step launched {per_step}: want B1 4 times (the base's "
+                             "encode, the mixture, the estimates, the sources) and B2 once")
+
+    # at init the two stages are near the base alone
+    tr.load_state(state0)
+    mixes = torch.from_numpy(quality_mixtures(2, BATCH).sum(axis=1)).cuda()
+    with tr._serving_weights():
+        init_db = _db(tr.model.separate(mixes).cpu().numpy(), base.separate(mixes).cpu().numpy())
+    say(f"  at init, two stages against the base alone ({BATCH} of phase 4's mixtures): SI-SDR "
+        f"{init_db.min():.2f}-{init_db.max():.2f} dB, mean {init_db.mean():.2f} "
+        f"(gate {ENH_INIT_MIN_DB} dB)")
+    if not init_db.min() >= ENH_INIT_MIN_DB:
+        raise AssertionError(f"the refiner at init moves the base's output to {init_db} dB")
+
+    valid0 = tr.valid_loss()
+    final, launches, fit_s, peak = _fit_counted(tr, state0)
+    n_valid = -(-t.steps // t.valid_every)
+    # a validation: valid_steps loss batches, and the image summaries (the
+    # mixture's encode, a two-stage separate, its first speaker's encode)
+    want = {"framed_matmul": 4 * t.steps + (4 * t.valid_steps + 5) * n_valid,
+            "decode_ola": t.steps + (t.valid_steps + 2) * n_valid}
+    if launches != want:
+        raise AssertionError(f"enh training launches {launches}, want {want}")
+    valid = _valid_losses(tr.dir)
+    if len(valid) != n_valid or not valid[-1] < valid0:
+        raise AssertionError(f"enh valid loss {valid0} at init, {valid} after")
+    check_checkpoint_reloads(tr, final, t.steps)
+    moved = [n for n, p in base.named_parameters() if not torch.equal(p, frozen[n])]
+    if moved:
+        raise AssertionError(f"the frozen base moved: {moved}")
+    say(f"  the base's {len(frozen)} tensors are bit for bit those of checkpoints/c1_dpcl")
+    ms = window_ms_per_step(tr.dir, skip={TRAIN_LOG_EVERY})
+    say(f"  enh: {ms:.3f} ms/step median after warm-up, peak memory {peak / 2**30:.3f} GiB, "
+        f"valid loss {valid0:.4f} -> {[round(v, 4) for v in valid]}, launches per step "
+        f"{per_step}")
+
+    model = load_model_from_run(tr.dir)
+    reset_launches()
+    q = phase_quality(model)
+    got = launch_counts()
+    calls = -(-QUALITY_N // BATCH) + 1
+    if got != {"framed_matmul": 3 * calls, "decode_ola": 2 * calls}:
+        raise AssertionError(f"enh serving launched {got}, want 3 x {calls} and 2 x {calls}")
+    out_launches = {"enh_train": launches, "enh_serve": got}
+    say(f"  enh after {t.steps} steps, served ({QUALITY_N} mixtures, batch {BATCH}): si_sdri "
+        f"{q['si_sdri_db']:.3f} dB, 95% CI {q['ci95']} (gate {QUALITY_MIN_DB} dB; the base "
+        f"{base_quality['si_sdri_db']:.3f} dB), launches {got}")
+    if not q["si_sdri_db"] >= QUALITY_MIN_DB:
+        raise AssertionError(f"enh SI-SDRi {q['si_sdri_db']:.3f} dB < {QUALITY_MIN_DB} dB")
+
+    # the trained state on the card against the CPU
+    cpu = load_model_from_run(tr.dir, device="cpu")
+    two = mixes[:2]
+    whole_db = _db(model.separate(two).cpu().numpy(), cpu.separate(two.cpu()).numpy(),
+                   best_order=True)
+    est = model.base.separate(two)
+    model._frozen[0] = FixedFirstPass(model.base, est)
+    cpu._frozen[0] = FixedFirstPass(cpu.base, est.cpu())
+    stage_db = _db(model.separate(two).cpu().numpy(), cpu.separate(two.cpu()).numpy())
+    say(f"  trained state, card against CPU, two mixtures: two stages {whole_db.round(2).tolist()} "
+        f"dB in the best speaker order (bound {ENH_CARD_CPU_MIN_DB}), the second stage from "
+        f"one first pass "
+        f"{stage_db.round(2).tolist()} dB (bound {ENH_STAGE_CARD_CPU_MIN_DB})")
+    if not (whole_db >= ENH_CARD_CPU_MIN_DB).all() or not (
+            stage_db >= ENH_STAGE_CARD_CPU_MIN_DB).all():
+        raise AssertionError(f"enh card against CPU: {whole_db}, {stage_db} dB")
+    out = dict(steps=t.steps, batch=t.batch_size, chunk=t.chunk_samples, fit_s=fit_s,
+               ms_per_step=ms, peak_bytes=peak, valid_loss_init=valid0, valid_loss=valid,
+               launches_per_step=per_step, base_first_pass_card_cpu_db=base_db.tolist(),
+               init_vs_base_db=init_db.tolist(), quality=q, base_quality=base_quality,
+               card_cpu_db=whole_db.tolist(), stage_card_cpu_db=stage_db.tolist(),
+               **step_check)
+    return out, out_launches
+
+
+def check_blstm_dropout() -> dict:
+    """The BLSTM stack's training-time dropout on the card: cuDNN one layer
+    at a time (packed where masked) against the step-by-step loop on the card
+    with the same key, so the same masks; the output and the input's
+    gradient, relative to their largest magnitudes."""
+    from amss_tpu_torch.models.blstm import BLSTM
+    from amss_tpu_torch.models.dprnn import DropoutKey, dropout
+
+    gen = torch.Generator().manual_seed(0)
+    lstm = BLSTM(64, 32, 2)
+    lstm.init_parameters(gen)
+    lstm = lstm.cuda().train()
+    x = torch.randn(6, 50, 64, generator=gen).cuda()
+    mask = torch.ones(6, 50, device="cuda")
+    mask[1, 30:] = 0.0
+    mask[4, 7:] = 0.0
+    out = {}
+    for name, m in (("unmasked", None), ("masked", mask)):
+        key = DropoutKey(5)
+        xa, xb = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+        a = lstm(xa, m, dropout_rate=0.2, rng=key)
+        h = xb
+        for layer, r in enumerate(key.split(lstm.layers)):
+            h = dropout(lstm._layer_loop(h, m, layer), 0.2, r)
+        a.square().sum().backward()
+        h.square().sum().backward()
+        err = float((a - h).detach().abs().max() / h.detach().abs().max())
+        gerr = float((xa.grad - xb.grad).abs().max() / xb.grad.abs().max())
+        out[name] = dict(err=err, grad_err=gerr)
+        if not (err <= BLSTM_DROPOUT_TOL and gerr <= STEP_GRAD_TOL):
+            raise AssertionError(f"the BLSTM's dropout on the card ({name}): {err}, {gerr}")
+    say(f"  BLSTM 2 x 32 with dropout 0.2, cuDNN a layer at a time against the loop, one key: "
+        f"{out} of the peak (tol {BLSTM_DROPOUT_TOL:g}, gradients {STEP_GRAD_TOL:g})")
+    return out
+
+
+def phase_dual_path(trunk: str, store, workdir: str) -> tuple[dict, dict]:
+    """c6 with the ``trunk`` (dprnn or dpt) trained with phase 5's checks,
+    served on the card against the CPU (one utterance padded in its bucket)
+    and scored, and one separate call's stages; returns (results, launches
+    by path)."""
+    from amss_tpu_torch.configs.recipes import c6_dual_path
+    from amss_tpu_torch.infer.streaming import BucketSpec, StreamingSeparator
+    from amss_tpu_torch.tools.stage_times import dual_path_stage_times
+    from amss_tpu_torch.weights import load_model_from_run
+
+    recipe = c6_dual_path(trunk, steps=DP_STEPS, valid_every=DP_STEPS // 2)
+    if recipe.model.sep.dropout > 0.0:
+        say(f"  the first step against the CPU runs at rate 0 (no dropout key on either side); "
+            f"training runs at {recipe.model.sep.dropout}")
+    out, launches = {}, {}
+    if trunk == "dprnn":
+        out["blstm_dropout"] = check_blstm_dropout()
+    out["train"], launches[f"c6_{trunk}_train"] = phase_train_recipe(
+        recipe, store, workdir, grad_tol=C6_STEP_GRAD_TOL)
+    run_dir = out["train"]["run_dir"]
+    model = load_model_from_run(run_dir)
+    cpu = load_model_from_run(run_dir, device="cpu")
+    waves = list(quality_mixtures(2, 4).sum(axis=1))
+    waves[1] = waves[1][:DP_PADDED_SAMPLES]
+    buckets = BucketSpec(lengths=(QUALITY_T,))
+    reset_launches()
+    card = StreamingSeparator(model, buckets=buckets).separate_all(waves)
+    launches[f"c6_{trunk}_serve"] = launch_counts()
+    host = StreamingSeparator(cpu, buckets=buckets, device="cpu").separate_all(waves)
+    if [c.shape for c in card] != [(2, len(w)) for w in waves] or not all(
+            np.isfinite(c).all() for c in card):
+        raise AssertionError(f"c6 {trunk} serving: {[c.shape for c in card]}, finite "
+                             f"{[bool(np.isfinite(c).all()) for c in card]}")
+    db = np.array([float(_db(c[None], h[None])[0]) for c, h in zip(card, host)])
+    say(f"  c6 {trunk} trained state, card against CPU ({len(waves)} utterances, the second "
+        f"{DP_PADDED_SAMPLES} samples in a bucket of {QUALITY_T}): SI-SDR {db.round(2).tolist()} "
+        f"dB (bound {C4_CARD_CPU_MIN_DB}), all finite, launches {launches[f'c6_{trunk}_serve']}")
+    if not (db >= C4_CARD_CPU_MIN_DB).all():
+        raise AssertionError(f"c6 {trunk} card against CPU: {db} dB")
+    if any(launches[f"c6_{trunk}_serve"].values()):
+        raise AssertionError("the shape gate is closed at 32/16: no kernel may launch")
+    out["card_cpu_db"] = db.tolist()
+    out["quality"], launches[f"c6_{trunk}_quality"] = _gated_quality(
+        model, None, f"c6 {trunk} after {DP_STEPS} steps (a cut run)")
+    out["stages"] = dual_path_stage_times(model, BATCH, SECONDS, 10)
+    st = out["stages"]
+    say(f"  c6 {trunk} separate (8 x 8 s): {st['separate_ms']:.3f} ms, stages "
+        f"{ {k: round(v, 3) for k, v in st['stage_ms'].items()} }, one block "
+        f"{ {k: round(v, 3) for k, v in st['trunk_parts_ms'].items()} }")
+    return out, launches
+
+
 def main() -> None:
     faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
     t_start = time.perf_counter()
@@ -1880,10 +2295,26 @@ def main() -> None:
         c4, c4_launches = phase_c4(workdir)
         say(f"phase 16 c4 (Chimera): {time.perf_counter() - t0:.2f} s")
 
+        t0 = time.perf_counter()
+        count, count_launches = phase_count()
+        say(f"phase 17 counting (c1_count, auto-k): {time.perf_counter() - t0:.2f} s")
+
+        t0 = time.perf_counter()
+        enh, enh_launches = phase_enh(store, workdir, quality)
+        say(f"phase 18 enhancement (enh over c1_dpcl): {time.perf_counter() - t0:.2f} s")
+
+        dual = {}
+        for phase, trunk in ((19, "dprnn"), (20, "dpt")):
+            t0 = time.perf_counter()
+            say(f"c6 with the {trunk} trunk")
+            dual[trunk], dual_launches = phase_dual_path(trunk, store, workdir)
+            enh_launches.update(dual_launches)
+            say(f"phase {phase} c6 {trunk}: {time.perf_counter() - t0:.2f} s")
+
     per_path = {"c1_serve": launches, "c1_train": train_launches, "c2_serve": launches_c2,
                 **train_c2_launches, "long_form": long_launches, **serve_c6_launches,
                 **train_c6_launches, "c7_realtime": realtime_launches, **c7_launches,
-                **c3_launches, **c4_launches}
+                **c3_launches, **c4_launches, **count_launches, **enh_launches}
     record = []
     other = {"framed_matmul": "decode_ola", "decode_ola": "framed_matmul"}
     for name, (source, replaces, design) in KERNELS.items():
@@ -1925,7 +2356,8 @@ def main() -> None:
                     "c2_serving": speed_c2, "c2_quality": quality_c2, "c2_training": train_c2,
                     "long_form": long_form, "c6_serving": serve_c6, "c6_training": train_c6,
                     "c7_realtime": realtime, "c7": c7, "c3": c3,
-                    "c4": c4, "card": card,
+                    "c4": c4, "count": count, "enh": enh, "c6_dprnn": dual["dprnn"],
+                    "c6_dpt": dual["dpt"], "card": card,
                     "total_s": time.perf_counter() - t_start}))
     say(card)
     say(json.dumps({"kernels": record}))

@@ -24,6 +24,7 @@ from amss_tpu.models import front as jfront
 from amss_tpu.models.dpcl import dpcl_loss as j_dpcl_loss
 from amss_tpu.train.engine import make_model as j_make_model
 from amss_tpu_torch.models.dpcl import DPCLModel, dpcl_loss
+from amss_tpu_torch.models.dprnn import DropoutKey
 from amss_tpu_torch.models.front import (
     bin_weights, ideal_binary_mask, magnitude_weights, vad_weights)
 from amss_tpu_torch.utils.config import FrontConfig, ModelConfig, SeparatorConfig
@@ -163,12 +164,17 @@ def test_init_draws_the_reference_distributions():
 
 
 def test_training_raises_for_what_is_not_ported():
+    """Dropout no longer raises (it is ported, tests/test_torch_dropout.py):
+    without a key it is off, as the JAX package's is without one, and a key
+    turns it on.  The train-time corruptions still raise (ROADMAP item 20)."""
     cfg = ModelConfig(sep=SeparatorConfig(hidden=8, layers=1, embed_dim=3, dropout=0.1))
     model = DPCLModel(cfg)
-    sources = torch.zeros((1, 2, 1024))
-    model.loss(sources)  # evaluation ignores dropout
-    with pytest.raises(NotImplementedError, match="dropout"):
-        model.loss(sources, training=True)
+    model.init_parameters(torch.Generator().manual_seed(0))
+    sources = torch.randn((1, 2, 1024), generator=torch.Generator().manual_seed(1)) * 0.1
+    with torch.no_grad():
+        plain = model.loss(sources)[0]
+        assert torch.equal(model.loss(sources, training=True)[0], plain)
+        assert not torch.equal(model.loss(sources, training=True, rng=DropoutKey(3))[0], plain)
     for over in ({"train_noise_snr_db": (0.0, 10.0)}, {"train_reverb_rt60": (0.2, 0.6)},
                  {"train_min_speakers": 1}):
         cfg = ModelConfig(sep=SeparatorConfig(hidden=8, layers=1, embed_dim=3), **over)

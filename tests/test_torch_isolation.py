@@ -30,6 +30,8 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import amss_tpu_torch.models.adapt, amss_tpu_torch.ops.pooling, amss_tpu_torch.infer.long\n"
         "import amss_tpu_torch.tools.stage_times, amss_tpu_torch.infer.realtime\n"
         "import amss_tpu_torch.models.l41, amss_tpu_torch.models.chimera\n"
+        "import amss_tpu_torch.infer.count, amss_tpu_torch.models.enhance\n"
+        "import amss_tpu_torch.models.dprnn, amss_tpu_torch.models.dptransformer\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(BANNED)!r})\n"
         "print(','.join(bad))\n"
     )
@@ -68,6 +70,21 @@ def test_weights_loader_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load_model_from_run(str(REPO / "checkpoints" / "c1_dpcl"))
+
+
+def test_count_and_enhance_entry_points_raise_without_cuda(monkeypatch):
+    from amss_tpu_torch.configs.recipes import enh_dpcl
+    from amss_tpu_torch.infer.count import separate_auto_k
+    from amss_tpu_torch.models.dpcl import DPCLModel
+    from amss_tpu_torch.train.engine import make_model
+    from amss_tpu_torch.utils.config import ModelConfig, SeparatorConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = DPCLModel(ModelConfig(sep=SeparatorConfig(hidden=4, layers=1, embed_dim=5)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        separate_auto_k(model, [])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_model(enh_dpcl().model, str(REPO / "checkpoints" / "c1_dpcl"))
 
 
 def _fake_cuda(*shape):

@@ -28,6 +28,7 @@ from amss_tpu.ops.metrics import pit_si_sdr as j_pit_si_sdr
 from amss_tpu.train.engine import make_model as j_make_model
 from amss_tpu_torch.ckpt.checkpoint import load_params
 from amss_tpu_torch.configs import recipes
+from amss_tpu_torch.models.dprnn import DropoutKey
 from amss_tpu_torch.models.tasnet import TasNetModel
 from amss_tpu_torch.ops.metrics import pit_si_sdr
 from amss_tpu_torch.train.engine import make_model
@@ -141,15 +142,22 @@ def test_weights_round_trip_on_the_checkpoints(run):
 
 
 def test_the_trunks_still_to_port_raise():
-    for trunk, item in (("dprnn", "item 19"), ("dpt", "item 19")):
-        with pytest.raises(NotImplementedError, match=item):
-            TasNetModel(_port_cfg(_small(trunk=trunk)))
+    """The name is kept from when the dual-path trunks and dropout raised:
+    both are ported (tests/test_torch_dprnn.py, test_torch_dpt.py and
+    test_torch_dropout.py hold them against the JAX package), and what still
+    raises is a train-time corruption (ROADMAP item 20)."""
+    for trunk in ("dprnn", "dpt"):
+        model = TasNetModel(_port_cfg(_small(trunk=trunk, blocks=2, chunk_frames=8)))
+        assert model.trunk_dim == 16 and hasattr(model, trunk)
     noisy = dataclasses.replace(_port_cfg(_small()), train_noise_snr_db=(5.0, 15.0))
     with pytest.raises(NotImplementedError, match="item 20"):
         TasNetModel(noisy).loss(torch.zeros((1, 2, 2048)), training=True)
     model = TasNetModel(_port_cfg(_small(dropout=0.1)))
     model.init_parameters(torch.Generator().manual_seed(0))
-    sources = torch.zeros((1, 2, 2048))
-    model.loss(sources)  # evaluation ignores dropout
-    with pytest.raises(NotImplementedError, match="item 12d"):
-        model.loss(sources, training=True)
+    sources = torch.randn((1, 2, 2048), generator=torch.Generator().manual_seed(1)) * 0.1
+    with torch.no_grad():
+        plain = model.loss(sources)[0]  # evaluation: no key, no dropout
+        assert torch.equal(model.loss(sources, training=True)[0], plain)
+        dropped = model.loss(sources, training=True, rng=DropoutKey(0))[0]
+        assert not torch.equal(dropped, plain)
+        assert torch.equal(model.loss(sources, training=True, rng=DropoutKey(0))[0], dropped)

@@ -33,7 +33,7 @@ from amss_tpu.models.blstm import dense as j_dense
 from amss_tpu.models.dprnn import layer_norm as j_layer_norm
 from amss_tpu_torch.models import tcn
 from amss_tpu_torch.models.blstm import dense
-from amss_tpu_torch.models.dprnn import LayerNorm, dropout, layer_norm
+from amss_tpu_torch.models.dprnn import DropoutKey, LayerNorm, dropout, layer_norm
 from amss_tpu_torch.weights import _flatten
 
 torch.set_num_threads(2)
@@ -115,10 +115,13 @@ def test_layer_norm_uses_the_population_variance():
 
 
 def test_dropout_is_identity_outside_training_and_raises_inside():
-    x = torch.ones(3)
-    assert dropout(x, 0.5, training=False) is x and dropout(x, 0.0, training=True) is x
-    with pytest.raises(NotImplementedError, match="item 12d"):
-        dropout(x, 0.1, training=True)
+    """Without a key (evaluation) or at rate 0 dropout is the identity; with
+    a key it zeroes some entries and scales the rest by 1/keep (the name is
+    kept from when training-time dropout still raised)."""
+    x = torch.ones(3000)
+    assert dropout(x, 0.5, None) is x and dropout(x, 0.0, DropoutKey(0)) is x
+    y = dropout(x, 0.1, DropoutKey(0))
+    assert set(torch.unique(y).tolist()) == {0.0, float(torch.tensor(1.0) / 0.9)}
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -193,7 +196,7 @@ def test_remat_gives_the_same_values_and_gradients(dtype):
     for remat in (False, True):
         port.zero_grad()
         y = tcn.tcn_stack(port, x, mask, blocks_per_repeat=BLOCKS, compute_dtype=dtype,
-                          remat=remat, training=True)
+                          remat=remat, rng=DropoutKey(0))
         (y * torch.linspace(-1, 1, y.shape[-1])).sum().backward()
         outs.append((y.detach(), {n: _grad(p).clone() for n, p in port.named_parameters()}))
     assert torch.equal(outs[0][0], outs[1][0])
@@ -215,7 +218,7 @@ def test_every_parameter_gradient_matches_jax_grad():
 
     jg = _flatten(_np(jax.grad(f)(jp)), "")
     y = tcn.tcn_stack(port, torch.from_numpy(x), torch.from_numpy(mask),
-                      blocks_per_repeat=BLOCKS, remat=True, training=True)
+                      blocks_per_repeat=BLOCKS, remat=True, rng=DropoutKey(0))
     (y * torch.from_numpy(cot)).sum().backward()
     names = dict(port.named_parameters())
     assert sorted(names) == sorted(jg)

@@ -202,8 +202,10 @@ def test_trainer_raises_without_a_card_and_for_what_is_not_ported(store, tmp_pat
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(_tiny(recipes, **over), store, workdir=str(tmp_path), device="cpu")
     r = _tiny(recipes)
+    # the enhancer is ported (tests/test_torch_enhance.py); without a base run
+    # it has nothing to refine
     other = dataclasses.replace(r, model=dataclasses.replace(r.model, kind="enhance"))
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(ValueError, match="base_run"):
         Trainer(other, store, workdir=str(tmp_path), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
