@@ -1,16 +1,20 @@
 """Speaker-keyed waveform store (``amss_tpu/data/store.py``): one float32
 ``<speaker>.npy`` per speaker, opened memory-mapped, and a ``manifest.json``.
 
-A copy of the JAX package's ``SpeakerStore``, so that either package reads a
-corpus the other wrote.  WAV ingestion is not ported yet.
+A copy of the JAX package's ``SpeakerStore`` and its WAV ingest
+(``_read_wav``, ``ingest_wav_tree``), so that either package reads a corpus
+the other wrote or ingested.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import wave as wave_mod
 
 import numpy as np
+
+from amss_tpu_torch.data.resample import resample_sinc
 
 
 class SpeakerStore:
@@ -59,3 +63,72 @@ class SpeakerStore:
 
     def n_samples(self, speaker_id: str) -> int:
         return self.manifest["speakers"][speaker_id]["n_samples"]
+
+
+def _read_wav(path: str) -> tuple[np.ndarray, int]:
+    """Minimal PCM WAV reader (16-bit / 32-bit int, mono or first channel).
+    Float (IEEE format 3) WAVs raise ``ValueError``: the stdlib ``wave``
+    module parses PCM only."""
+    try:
+        with wave_mod.open(path, "rb") as w:
+            sr = w.getframerate()
+            n = w.getnframes()
+            ch = w.getnchannels()
+            width = w.getsampwidth()
+            raw = w.readframes(n)
+    except wave_mod.Error as e:
+        raise ValueError(
+            f"{path}: unsupported WAV encoding ({e}); only integer PCM is "
+            "supported — convert float WAVs to 16-bit PCM before ingest"
+        ) from e
+    if width == 2:
+        # 32767 mirrors write_wav's scale: int16 round-trips bit-exactly.
+        x = np.frombuffer(raw, np.int16).astype(np.float32) / 32767.0
+    elif width == 4:
+        x = np.frombuffer(raw, np.int32).astype(np.float32) / 2147483648.0
+    else:
+        raise ValueError(f"unsupported WAV sample width {width} in {path}")
+    if ch > 1:
+        x = x.reshape(-1, ch)[:, 0]
+    return x, sr
+
+
+def ingest_wav_tree(
+    wav_root: str, store_root: str, sample_rate: int | None = None
+) -> SpeakerStore:
+    """Build a SpeakerStore from ``wav_root/<speaker>/**.wav`` (a LibriSpeech
+    or WSJ style tree).  A speaker's utterances concatenate into one shard,
+    and the manifest records their boundaries.  Files at another rate than the
+    store's are resampled (``data/resample.py``), so a 16 kHz tree ingests
+    into an 8 kHz store.  ``sample_rate=None`` adopts the first file's rate.
+    """
+    speakers = sorted(
+        d for d in os.listdir(wav_root) if os.path.isdir(os.path.join(wav_root, d))
+    )
+    if not speakers:
+        raise ValueError(f"no speaker directories under {wav_root}")
+    store = None
+    for spk in speakers:
+        waves, bounds, off = [], [], 0
+        for dirpath, _, files in sorted(os.walk(os.path.join(wav_root, spk))):
+            for fn in sorted(files):
+                if not fn.lower().endswith(".wav"):
+                    continue
+                x, sr = _read_wav(os.path.join(dirpath, fn))
+                if sample_rate is None:
+                    sample_rate = sr
+                if sr != sample_rate:
+                    x = resample_sinc(x, sr, sample_rate)
+                waves.append(x)
+                bounds.append((off, off + len(x)))
+                off += len(x)
+        if not waves:
+            continue
+        if store is None:
+            store = SpeakerStore.create(store_root, sample_rate=sample_rate)
+        store.add_speaker(spk, np.concatenate(waves))
+        store.manifest["speakers"][spk]["utterances"] = bounds
+    if store is None:
+        raise ValueError(f"no WAV files under {wav_root}")
+    store.finalize()
+    return store

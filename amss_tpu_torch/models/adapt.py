@@ -127,7 +127,7 @@ class AdaptAutoencoder(nn.Module):
         loss = neg_si + 10.0 * l2
         return loss, {"ae_loss": loss, "neg_si_sdr": neg_si, "l2": l2}
 
-    def loss_from_batch(self, batch: dict, training: bool = False, rng=None):
-        """The trainer's entry point; nothing here depends on ``training`` or
-        on the dropout key ``rng``."""
+    def loss_from_batch(self, batch: dict, rng=None):
+        """The trainer's entry point; nothing here depends on the key
+        ``rng``."""
         return self.loss(batch["sources"])

@@ -5,11 +5,12 @@ The port has the JAX package's four trunks, each after the global
 (instance), per-channel or cumulative (causal) feature norm: the BLSTM and
 the dual-path RNN (float32), the TCN and the dual-path transformer (float32,
 or bf16 operands in their products, ``compute_dtype="bfloat16"``).  Every
-head takes every trunk.  Training-time dropout (``sep.dropout``) is drawn
-from a ``DropoutKey`` (``models/dprnn.py``), which the ``Trainer`` passes as
-``rng``; without one it is off, as the JAX package's is without a key.  The
-BLSTM in bfloat16 raises.  The JAX package's train-time corruptions (noise,
-reverberation, dropped sources) raise until ROADMAP item 20 ports them.
+head takes every trunk.  Training-time dropout (``sep.dropout``) and the
+train-time corruptions (``train_reverb_rt60``, ``train_noise_snr_db``,
+``train_min_speakers``; ``models/front.py``) draw from a ``DropoutKey``
+(``models/dprnn.py``), which the ``Trainer`` passes as ``rng``; without one
+the loss is the clean one, as the JAX package's is without a key.  The BLSTM
+in bfloat16 raises.
 """
 
 from __future__ import annotations
@@ -23,11 +24,14 @@ from amss_tpu_torch.models.dptransformer import DPT, dpt_stack
 from amss_tpu_torch.models.front import (
     bin_weights,
     channel_norm,
+    corrupt_mix,
     cumulative_norm,
+    drop_sources,
     ideal_binary_mask,
     instance_norm,
     make_front,
     psa_targets,
+    reverberate_sources,
 )
 from amss_tpu_torch.models.tcn import TCN, tcn_stack
 from amss_tpu_torch.utils.config import ModelConfig
@@ -104,33 +108,31 @@ class SeparatorBase(nn.Module):
                              heads=sep.heads, **common)
         return self.blstm(h, frame_mask, dropout_rate=sep.dropout, rng=rng)
 
-    def _check_no_corruption(self) -> None:
+    def observed_mix(self, sources: torch.Tensor, rng: DropoutKey | None = None) -> torch.Tensor:
+        """The mixture the model observes, from the sources [B, S, T]: with a
+        key, each source reverberated (``train_reverb_rt60``), then the sum,
+        then noise at a drawn SNR (``train_noise_snr_db``).  Without a key,
+        the plain sum."""
         c = self.cfg
-        for field, value in (("train_noise_snr_db", c.train_noise_snr_db),
-                             ("train_reverb_rt60", c.train_reverb_rt60),
-                             ("train_min_speakers", c.train_min_speakers)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"model.{field}={value!r}: the in-graph train-time corruptions "
-                    "(corrupt_mix, reverberate_sources, drop_sources) are not ported "
-                    "yet: ROADMAP item 20")
+        if c.train_reverb_rt60 is not None and rng is not None:
+            sources = reverberate_sources(sources, rng, tuple(c.train_reverb_rt60),
+                                          tuple(c.train_reverb_drr_db))
+        mix = sources.sum(dim=1)
+        if c.train_noise_snr_db is not None and rng is not None:
+            mix = corrupt_mix(mix, rng, tuple(c.train_noise_snr_db))
+        return mix
 
-    def observed_mix(self, sources: torch.Tensor, training: bool = False) -> torch.Tensor:
-        """The mixture the model observes: the sum of the sources [B, S, T].
-
-        ``training`` stands where the JAX package passes a train key: with it,
-        a config that asks for a train-time corruption raises."""
-        if training:
-            self._check_no_corruption()
-        return sources.sum(dim=1)
-
-    def encode_mix_and_sources(self, sources: torch.Tensor, training: bool = False):
+    def encode_mix_and_sources(self, sources: torch.Tensor, rng: DropoutKey | None = None):
         """Mixing on the device, then analysis of the mixture and the sources.
 
         sources [B, S, T] -> (mix [B, T], mix codes, aux, source codes
         [B, S, T', F], ideal binary mask Y [B, T', F, S], bin weights
-        [B, T', F], source aux)."""
-        mix = self.observed_mix(sources, training)
+        [B, T', F], source aux).  With a key and ``train_min_speakers``, the
+        sources at index >= a drawn count are zeroed first, so the targets
+        change too; the mixture is then ``observed_mix``'s."""
+        if self.cfg.train_min_speakers is not None and rng is not None:
+            sources = drop_sources(sources, rng, self.cfg.train_min_speakers)
+        mix = self.observed_mix(sources, rng)
         codes, aux = self.front.encode(mix)
         src_codes, src_aux = self.front.encode(sources)
         y = ideal_binary_mask(src_codes)
@@ -145,11 +147,11 @@ class SeparatorBase(nn.Module):
             return psa_targets(codes, aux, src_codes, src_aux)
         return src_codes
 
-    def loss_from_batch(self, batch: dict, training: bool = False,
-                        rng: DropoutKey | None = None):
+    def loss_from_batch(self, batch: dict, rng: DropoutKey | None = None):
         """The trainer's entry point: ``(loss, metrics)`` from a batch holding
-        ``sources`` [B, S, T]; ``rng`` is the dropout key."""
-        return self.loss(batch["sources"], training=training, rng=rng)
+        ``sources`` [B, S, T]; ``rng`` is the key of dropout and the
+        corruptions."""
+        return self.loss(batch["sources"], rng=rng)
 
     def apply_masks_and_decode(
         self,

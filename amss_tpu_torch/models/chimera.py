@@ -74,13 +74,13 @@ class ChimeraModel(SeparatorBase):
         m = dense(self.proj_mask, h, self.compute_dtype)
         return v, torch.softmax(m.reshape(*feats.shape, c.nb_speakers), dim=-1)
 
-    def loss(self, sources: torch.Tensor, training: bool = False,
-             rng: DropoutKey | None = None) -> tuple[torch.Tensor, dict]:
+    def loss(self, sources: torch.Tensor, rng: DropoutKey | None = None
+             ) -> tuple[torch.Tensor, dict]:
         """The two heads' losses from the source chunks [B, S, T], mixed on
         the device, weighted by ``chimera_alpha``."""
         c = self.cfg
         mix, codes, aux, src_codes, y, w, src_aux = self.encode_mix_and_sources(
-            sources, training)
+            sources, rng)
         v, masks = self.heads(self.front.features(codes), rng=rng)
         l_dc = dpcl_loss(v, y, w)
         l_mi = msa_pit_loss(masks, codes, self.mi_targets(codes, aux, src_codes, src_aux), w)

@@ -57,12 +57,13 @@ class DPCLModel(SeparatorBase):
         if hasattr(self.front, "init_parameters"):  # a learned front, drawn last
             self.front.init_parameters(generator)
 
-    def loss(self, sources: torch.Tensor, training: bool = False,
-             rng: DropoutKey | None = None) -> tuple[torch.Tensor, dict]:
+    def loss(self, sources: torch.Tensor, rng: DropoutKey | None = None
+             ) -> tuple[torch.Tensor, dict]:
         """Training objective from the source chunks [B, S, T], mixed on the
         device: the DPCL loss, plus ``recon_weight`` times the mixture's
-        reconstruction error when that is set.  ``rng`` is the dropout key."""
-        mix, codes, aux, _, y, w, _ = self.encode_mix_and_sources(sources, training)
+        reconstruction error when that is set.  ``rng`` is the key of dropout
+        and the corruptions."""
+        mix, codes, aux, _, y, w, _ = self.encode_mix_and_sources(sources, rng)
         v = self.embed(self.front.features(codes), rng=rng)
         l_dc = dpcl_loss(v, y, w)
         metrics = {"dpcl_loss": l_dc}

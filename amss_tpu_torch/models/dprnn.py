@@ -36,11 +36,13 @@ from amss_tpu_torch.models.blstm import BLSTM, dense, init_dense, prefix_lengths
 
 
 class DropoutKey:
-    """A key for training-time dropout, as a JAX PRNG key is for the JAX
-    package's: ``split`` and ``fold_in`` derive child keys on the host,
-    ``keep_mask`` draws a mask from a generator seeded with the key on the
-    tensor's device.  The same key draws the same mask again on one device; a
-    CPU and a CUDA generator draw different masks from one seed."""
+    """A key for training-time draws (dropout, and the corruptions of
+    ``models/front.py``), as a JAX PRNG key is for the JAX package's:
+    ``split`` and ``fold_in`` derive child keys on the host, ``generator``
+    gives a generator seeded with the key on a device, and ``keep_mask`` draws
+    a mask from the one on the tensor's device.  The same key draws the same
+    mask again on one device; a CPU and a CUDA generator draw different masks
+    from one seed."""
 
     __slots__ = ("seed",)
 
@@ -56,11 +58,14 @@ class DropoutKey:
         g = torch.Generator().manual_seed((self.seed * 0x9E3779B97F4A7C15 + int(data)) % 2**63)
         return DropoutKey(int(torch.randint(0, 2**62, (1,), generator=g)))
 
+    def generator(self, device="cpu") -> torch.Generator:
+        """A generator on ``device`` seeded with the key."""
+        return torch.Generator(device=device).manual_seed(self.seed)
+
     def keep_mask(self, shape, keep: float, device) -> torch.Tensor:
         """A boolean mask of ``shape``, each entry True with probability
         ``keep``."""
-        g = torch.Generator(device=device).manual_seed(self.seed)
-        return torch.rand(shape, generator=g, device=device) < keep
+        return torch.rand(shape, generator=self.generator(device), device=device) < keep
 
 
 def apply_keep_mask(x: torch.Tensor, keep_mask: torch.Tensor, keep: float) -> torch.Tensor:

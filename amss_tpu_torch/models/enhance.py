@@ -111,13 +111,12 @@ class EnhancerModel(nn.Module):
     # the separators' masking and decode, which reads nothing but ``front``
     apply_masks_and_decode = SeparatorBase.apply_masks_and_decode
 
-    def loss(self, sources: torch.Tensor, training: bool = False,
-             rng=None) -> tuple[torch.Tensor, dict]:
+    def loss(self, sources: torch.Tensor, rng=None) -> tuple[torch.Tensor, dict]:
         """The refiner's loss on the mixture of ``sources`` [B, S, T]: PIT
         SI-SDR through the decoder ("sisdr"), else the permutation-invariant
         masked-magnitude loss against the sources ("msa") or the
         phase-sensitive targets ("psa").  The refiner has no dropout and the
-        mixture no corruption, so ``training`` and ``rng`` change nothing."""
+        mixture no corruption, so the key ``rng`` changes nothing."""
         mix = sources.sum(dim=1)
         codes, aux, est_codes = self._base_separate_codes(mix)
         masks = self.refined_masks(codes, est_codes)
@@ -135,8 +134,8 @@ class EnhancerModel(nn.Module):
         loss = msa_pit_loss(masks, codes, ref, w)
         return loss, {"enhance_mi": loss}
 
-    def loss_from_batch(self, batch: dict, training: bool = False, rng=None):
-        return self.loss(batch["sources"], training, rng)
+    def loss_from_batch(self, batch: dict, rng=None):
+        return self.loss(batch["sources"], rng)
 
     @torch.no_grad()
     def separate(self, mix: torch.Tensor, frame_mask: torch.Tensor | None = None) -> torch.Tensor:

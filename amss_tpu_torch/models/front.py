@@ -7,12 +7,20 @@ of ``models/adapt.py``.
 ``decode(codes, aux, length)``: masked magnitudes times the phase, back to
 waveforms.  Analysis runs kernel B1 and synthesis kernel B2, with the window
 folded into their bases; the COLA divide stays outside the kernel.
+
+The train-time corruptions (``drop_sources``, ``corrupt_mix``,
+``reverberate_sources``) are each a draw and an apply.  The draws come from a
+``DropoutKey`` under the JAX package's constants: the per-row scalars (k, the
+SNR, RT60 and DRR) from a host generator, so the card and the CPU draw the
+same ones, copied to the device without a wait; the noise and the RIR tails
+from a generator on the device.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from amss_tpu_torch.models.adapt import AdaptFrontEnd
@@ -22,6 +30,8 @@ from amss_tpu_torch.ops.stft import cola_norm, hann_window, idft_matrices
 from amss_tpu_torch.utils.config import FrontConfig
 
 _EPS = 1e-7
+# the JAX package's fold-in constants of the corruptions' keys
+_NOISE_KEY, _DROP_KEY, _REVERB_KEY = 0x5E15E, 0xC0DE7, 0x4EE4B
 
 
 class STFTFrontEnd(nn.Module):
@@ -73,6 +83,133 @@ def make_front(cfg: FrontConfig) -> nn.Module:
     if cfg.kind == "adapt":
         return AdaptFrontEnd(cfg)
     raise ValueError(f"unknown front kind {cfg.kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# Train-time corruptions.  Targets stay the clean, dry sources; only
+# drop_sources changes them (the dropped sources are silent in the targets).
+# ---------------------------------------------------------------------------
+
+
+def _to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on ``device``; to a card through pinned memory, without
+    the host waiting for the copy."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _host_uniform(key, shape, lo: float, hi: float) -> torch.Tensor:
+    """Uniform float32 in [lo, hi) from a host generator seeded with ``key``."""
+    return lo + (hi - lo) * torch.rand(shape, generator=key.generator())
+
+
+def draw_active_counts(rng, b: int, s: int, min_speakers: int) -> torch.Tensor:
+    """k ~ U{min_speakers..s} per row, [b] int64 on the host."""
+    g = rng.fold_in(_DROP_KEY).generator()
+    return torch.randint(min_speakers, s + 1, (b,), generator=g)
+
+
+def apply_drop(sources: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Zero the sources [B, S, T] at index >= k [B]."""
+    s = sources.shape[1]
+    active = (torch.arange(s, device=sources.device)[None, :] < k[:, None]).to(sources.dtype)
+    return sources * active[:, :, None]
+
+
+def drop_sources(sources: torch.Tensor, rng, min_speakers: int) -> torch.Tensor:
+    """Count-diverse training: draw an active count k per row and zero the
+    sources at index >= k, before mixing and target building.  The speaker
+    order in a row is already a uniform draw (``data/mixer.py``), so zeroing
+    the tail is an unbiased subset."""
+    b, s, _ = sources.shape
+    k = draw_active_counts(rng, b, s, min_speakers)
+    return apply_drop(sources, _to_device(k, sources.device))
+
+
+def draw_noise(rng, shape, snr_db_range: tuple[float, float],
+               device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(SNR in dB [B] drawn on the host, white noise ``shape`` [B, T] drawn on
+    ``device``), from ``split(2)`` of the key folded with the noise constant."""
+    kn, ks = rng.fold_in(_NOISE_KEY).split(2)
+    snr_db = _to_device(_host_uniform(ks, (shape[0],), *snr_db_range), device)
+    noise = torch.randn(shape, generator=kn.generator(device), device=device)
+    return snr_db, noise
+
+
+def apply_noise(mix: torch.Tensor, snr_db: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """``mix`` [B, T] plus ``noise`` scaled to ``snr_db`` [B] below its RMS."""
+    mix_rms = torch.sqrt((mix * mix).mean(dim=-1) + _EPS)
+    noise_rms = torch.sqrt((noise * noise).mean(dim=-1) + _EPS)
+    target_rms = mix_rms * 10.0 ** (-snr_db / 20.0)
+    return mix + noise * (target_rms / noise_rms)[:, None]
+
+
+def corrupt_mix(mix: torch.Tensor, rng, snr_db_range: tuple[float, float]) -> torch.Tensor:
+    """Noisy training: white Gaussian noise at an SNR drawn uniformly per row
+    in ``snr_db_range`` against the mixture's RMS."""
+    return apply_noise(mix, *draw_noise(rng, mix.shape, snr_db_range, mix.device))
+
+
+def rir_length(t: int, rt60_hi: float) -> int:
+    """The RIR's taps: the tail is cut at the -30 dB point of the longest
+    RT60, and at 4096 taps and the chunk's length."""
+    return int(min(t, 4096, max(2, int(rt60_hi) // 2)))
+
+
+def draw_reverb(rng, b: int, s: int, rir_len: int, rt60_range: tuple[float, float],
+                drr_db_range: tuple[float, float], device) -> tuple:
+    """(RT60 in samples [B, S, 1] and DRR in dB [B, S, 1], drawn on the host;
+    the Gaussian tails [B, S, rir_len - 1], drawn on ``device``), from
+    ``split(3)`` of the key folded with the reverb constant."""
+    kt, kd, kn = rng.fold_in(_REVERB_KEY).split(3)
+    rt60 = _to_device(_host_uniform(kt, (b, s, 1), *rt60_range), device)
+    drr_db = _to_device(_host_uniform(kd, (b, s, 1), *drr_db_range), device)
+    gauss = torch.randn((b, s, rir_len - 1), generator=kn.generator(device), device=device)
+    return rt60, drr_db, gauss
+
+
+def room_impulse_responses(rt60: torch.Tensor, drr_db: torch.Tensor,
+                           gauss: torch.Tensor) -> torch.Tensor:
+    """Synthetic RIRs [B, S, L]: a direct tap of 1 at lag 0, then the tail
+    ``gauss`` [B, S, L - 1] decaying to -60 dB at lag ``rt60``, its energy
+    scaled to the direct-to-reverb ratio ``drr_db``, the whole of unit
+    energy."""
+    n = torch.arange(1, gauss.shape[-1] + 1, dtype=gauss.dtype, device=gauss.device)
+    tail = gauss * 10.0 ** (-3.0 * n / rt60)
+    tail_energy = (tail * tail).sum(dim=-1, keepdim=True)
+    tail = tail * torch.sqrt(10.0 ** (-drr_db / 10.0) / (tail_energy + _EPS))
+    h = torch.cat([torch.ones_like(tail[..., :1]), tail], dim=-1)
+    return h / torch.sqrt((h * h).sum(dim=-1, keepdim=True))
+
+
+def apply_reverb(sources: torch.Tensor, rt60: torch.Tensor, drr_db: torch.Tensor,
+                 gauss: torch.Tensor) -> torch.Tensor:
+    """Each source [B, S, T] convolved causally with its own RIR: one
+    depthwise cross-correlation with the kernel flipped (B·S groups), padded
+    by L - 1 and trimmed to T, as the JAX package's ``lax.conv``.  cuDNN runs
+    it in float32 (no TF32)."""
+    b, s, t = sources.shape
+    h = room_impulse_responses(rt60, drr_db, gauss)
+    rir_len = h.shape[-1]
+    w = torch.flip(h, dims=[-1]).reshape(b * s, 1, rir_len)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                                    allow_tf32=False):
+        y = F.conv1d(sources.reshape(1, b * s, t), w, padding=rir_len - 1, groups=b * s)
+    return y[..., :t].reshape(b, s, t)
+
+
+def reverberate_sources(sources: torch.Tensor, rng, rt60_range: tuple[float, float],
+                        drr_db_range: tuple[float, float] = (0.0, 10.0)) -> torch.Tensor:
+    """Reverberant training: each source [B, S, T] convolved with its own
+    synthetic RIR of ``rir_length`` taps, RT60 (in samples) and DRR drawn
+    uniformly per source.  The caller sums the result into the observed
+    mixture; the targets stay dry."""
+    b, s, t = sources.shape
+    draws = draw_reverb(rng, b, s, rir_length(t, rt60_range[1]), rt60_range, drr_db_range,
+                        sources.device)
+    return apply_reverb(sources, *draws)
 
 
 def vad_weights(mix_codes: torch.Tensor, threshold_db: float = 40.0) -> torch.Tensor:

@@ -63,20 +63,19 @@ class L41Model(SeparatorBase):
         return torch.einsum("btfe,bse->btfs", v, cent)
 
     def loss(self, sources: torch.Tensor, speaker_ids: torch.Tensor,
-             training: bool = False, rng: DropoutKey | None = None) -> tuple[torch.Tensor, dict]:
+             rng: DropoutKey | None = None) -> tuple[torch.Tensor, dict]:
         """sources [B, S, T] and their global train-set ids [B, S] -> the
         weighted sigmoid cross-entropy over the bins, divided by
         ``max(Σw · S, 1)``."""
-        _, codes, _, _, y, w, _ = self.encode_mix_and_sources(sources, training)
+        _, codes, _, _, y, w, _ = self.encode_mix_and_sources(sources, rng)
         v = self.embed(self.front.features(codes), rng=rng)
         bce = sigmoid_binary_cross_entropy(self._logits(v, speaker_ids), y)
         loss = (bce * w[..., None]).sum() / torch.clamp(w.sum() * y.shape[-1], min=1.0)
         return loss, {"l41_loss": loss}
 
-    def loss_from_batch(self, batch: dict, training: bool = False,
-                        rng: DropoutKey | None = None):
+    def loss_from_batch(self, batch: dict, rng: DropoutKey | None = None):
         """The trainer's entry point: the batch carries ``speaker_ids``."""
-        return self.loss(batch["sources"], batch["speaker_ids"], training, rng)
+        return self.loss(batch["sources"], batch["speaker_ids"], rng)
 
     @torch.no_grad()
     def separate(self, mix: torch.Tensor, speaker_ids: torch.Tensor | None = None,

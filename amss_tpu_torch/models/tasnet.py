@@ -53,11 +53,14 @@ class TasNetModel(SeparatorBase):
         m = self.masks(feats, frame_mask, rng)
         return self.apply_masks_and_decode(codes, aux, m, mix.shape[-1])
 
-    def loss(self, sources: torch.Tensor, training: bool = False,
-             rng: DropoutKey | None = None) -> tuple[torch.Tensor, dict]:
+    def loss(self, sources: torch.Tensor, rng: DropoutKey | None = None
+             ) -> tuple[torch.Tensor, dict]:
         """Negative mean PIT SI-SDR of the waveforms separated from the mixture
-        of ``sources`` [B, S, T].  Only the mixture is encoded."""
-        mix = self.observed_mix(sources, training)
+        of ``sources`` [B, S, T].  Only the mixture is encoded: with the key
+        ``rng`` it is ``observed_mix``'s, reverberant or noisy, scored against
+        the dry sources.  ``train_min_speakers`` has no effect here, as in the
+        JAX package's TasNet."""
+        mix = self.observed_mix(sources, rng)
         est = self._forward(mix, rng=rng)
         sdr, _ = pit_si_sdr(est, sources)
         loss = -sdr.mean()

@@ -1,5 +1,6 @@
-"""Separation metrics on tensors (``amss_tpu/ops/metrics.py``): SI-SDR and
-its permutation-invariant form, and the improvement over the mixture."""
+"""Separation metrics on tensors (``amss_tpu/ops/metrics.py``): SI-SDR, its
+permutation-invariant form, the estimates reordered by the best permutation,
+and the improvement over the mixture."""
 
 from __future__ import annotations
 
@@ -34,6 +35,18 @@ def pit_si_sdr(est: torch.Tensor, ref: torch.Tensor) -> tuple[torch.Tensor, torc
          for p in perms], dim=-1)
     best = torch.argmax(scores, dim=-1)
     return scores.max(dim=-1).values, best
+
+
+def permute_estimates(est: torch.Tensor, perm_idx: torch.Tensor) -> torch.Tensor:
+    """Reorder ``est[..., S, T]`` by ``perm_idx[...]``, the index into
+    ``itertools.permutations(range(S))`` that ``pit_si_sdr`` returns."""
+    perms = list(itertools.permutations(range(est.shape[-2])))
+    out = est
+    # each permutation by slices, picked where it is the index, as in pit_si_sdr
+    for j, p in enumerate(perms):
+        cand = torch.stack([est[..., i, :] for i in p], dim=-2)
+        out = torch.where((perm_idx == j)[..., None, None], cand, out)
+    return out
 
 
 def sdr_improvement(est: torch.Tensor, ref: torch.Tensor, mix: torch.Tensor) -> torch.Tensor:

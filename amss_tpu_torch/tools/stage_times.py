@@ -5,6 +5,9 @@ one train step spend their device time.
     python3 -m amss_tpu_torch.tools.stage_times [--recipe c1|c2|c3|c4|c6|c7|enh] --train  # one step
     python3 -m amss_tpu_torch.tools.stage_times --recipe c6 --trunk dprnn|dpt [--train]
     python3 -m amss_tpu_torch.tools.stage_times --count
+    python3 -m amss_tpu_torch.tools.stage_times --recipe c1_count --train
+    python3 -m amss_tpu_torch.tools.stage_times --recipe c6 --train --corrupt noise|reverb
+    python3 -m amss_tpu_torch.tools.stage_times --eval
 
 ``--recipe enh`` refines the separator of ``--base-run`` (default
 ``checkpoints/c1_dpcl``) with refiner weights drawn from seed 0, and times
@@ -30,7 +33,14 @@ mask head, and the decode with the overlap-add tail, beside the whole push
 queued alone and with its fetch.  Training runs the stages of
 one step of the recipe at full width (weights drawn from seed 0, a random
 batch): the front and the targets, the features, the trunk's forward, the
-head and loss, the backward and the optimiser.  Each prints one JSON line
+head and loss, the backward and the optimiser.  A train-time corruption is
+a stage of its own, its draws and its apply: ``--recipe c1_count`` trains
+from ``checkpoints/c1_count/config.json`` (dropped sources, S = 3, batch 16),
+and ``--corrupt`` adds noise at 5-20 dB or reverberation of RT60 800-3200
+samples to a TasNet recipe.  ``--eval`` times ``evaluate_separation`` on
+c1_dpcl's estimates of the bench.py protocol (64 two-speaker mixtures of
+16384 samples): the SI-SDR on the card, then BSS-Eval and STOI on the host
+(wall seconds, once).  Each prints one JSON line
 with the median milliseconds of each stage over 10 calls (CUDA events around
 it, synchronised alone) beside the median of the whole call or step.  Needs
 a CUDA device.
@@ -39,6 +49,7 @@ a CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 
@@ -60,6 +71,9 @@ SERVING = {
                         "mask_unpool_decode_B2")),
 }
 TASNET_RUNS = {"c6": "c6_flagship", "c7": "c7_causal"}
+# the noise-robust and reverb-robust settings of scripts/r3_wave.py
+CORRUPTIONS = {"noise": {"train_noise_snr_db": (5.0, 20.0)},
+               "reverb": {"train_reverb_rt60": (800.0, 3200.0)}}
 
 
 def _timed(fn, reps: int):
@@ -269,10 +283,27 @@ def tasnet_stage_times(recipe: str, batch: int, seconds: int, reps: int) -> dict
     return out
 
 
+def _observed_mix_stages(model, sources: torch.Tensor, key, timed) -> torch.Tensor:
+    """``model.observed_mix`` stage by stage, each timed alone with its draws:
+    each source's reverberation, the mixing, the noise."""
+    from amss_tpu_torch.models.front import corrupt_mix, reverberate_sources
+
+    c = model.cfg
+    wet = sources
+    if c.train_reverb_rt60 is not None:
+        wet = timed("reverb_draw_rir_conv", lambda: reverberate_sources(
+            sources, key, tuple(c.train_reverb_rt60), tuple(c.train_reverb_drr_db)))
+    mix = timed("mix", lambda: wet.sum(dim=1))
+    if c.train_noise_snr_db is not None:
+        mix = timed("noise_draw_apply",
+                    lambda: corrupt_mix(mix, key, tuple(c.train_noise_snr_db)))
+    return mix
+
+
 def tasnet_train_stage_times(recipe, reps: int) -> dict:
     """The stages of one train step of a TasNet recipe (c6, c7, or c6 with a
-    dual-path trunk) at its full width; dropout, where the recipe has it,
-    draws from a key."""
+    dual-path trunk) at its full width; dropout and the corruptions, where
+    the recipe has them, draw from a key."""
     from amss_tpu_torch.models.blstm import dense
     from amss_tpu_torch.models.dprnn import DropoutKey
     from amss_tpu_torch.ops.metrics import pit_si_sdr
@@ -299,7 +330,7 @@ def tasnet_train_stage_times(recipe, reps: int) -> dict:
         out, times[name] = _timed(fn, reps)
         return out
 
-    mix = timed("mix", lambda: model.observed_mix(sources, training=True))
+    mix = _observed_mix_stages(model, sources, key, timed)
     codes, aux = timed(f"adapt_encode_{kern}_abs_sign", lambda: model.front.encode(mix))
     feats = timed("smooth_log_features", lambda: model.front.features(codes))
     h = timed(f"norm_{recipe.model.sep.trunk}_forward_remat",
@@ -315,13 +346,15 @@ def tasnet_train_stage_times(recipe, reps: int) -> dict:
     _, times["clip_adam"] = _timed(lambda: opt.step(list(grads)), reps)
 
     def step():
-        loss, _ = model.loss(sources, training=True, rng=key)
+        loss, _ = model.loss(sources, rng=key)
         g = torch.autograd.grad(loss, params, allow_unused=True)
         opt.step([torch.zeros_like(p) if x is None else x for x, p in zip(g, params)])
 
     _, whole = _timed(step, reps)
+    m = recipe.model
     return {"device": torch.cuda.get_device_name(0), "recipe": recipe.name,
-            "trunk": recipe.model.sep.trunk, "batch": t.batch_size, "samples": t.chunk_samples,
+            "trunk": m.sep.trunk, "batch": t.batch_size, "samples": t.chunk_samples,
+            "noise_snr_db": m.train_noise_snr_db, "reverb_rt60": m.train_reverb_rt60,
             "stage_ms": times, "sum_of_stages_ms": sum(times.values()), "train_step_ms": whole}
 
 
@@ -351,18 +384,18 @@ def heads_train_stage_times(recipe_name: str, reps: int) -> dict:
 
     times = {}
     enc, times["mix_encode_B1x2_targets"] = _timed(
-        lambda: model.encode_mix_and_sources(sources, training=True), reps)
+        lambda: model.encode_mix_and_sources(sources), reps)
     codes = enc[1]
     feats, times["features"] = _timed(lambda: model.front.features(codes), reps)
     _, times["norm_blstm_forward"] = _timed(lambda: model.trunk(feats), reps)
-    loss, forward = _timed(lambda: model.loss_from_batch(batch, training=True)[0], reps)
+    loss, forward = _timed(lambda: model.loss_from_batch(batch)[0], reps)
     times["head_and_loss_forward"] = forward - sum(times.values())
     grads, times["whole_backward"] = _timed(
         lambda: torch.autograd.grad(loss, params, retain_graph=True), reps)
     _, times["clip_adam"] = _timed(lambda: opt.step(list(grads)), reps)
 
     def step():
-        loss, _ = model.loss_from_batch(batch, training=True)
+        loss, _ = model.loss_from_batch(batch)
         opt.step(list(torch.autograd.grad(loss, params)))
 
     _, whole = _timed(step, reps)
@@ -371,15 +404,28 @@ def heads_train_stage_times(recipe_name: str, reps: int) -> dict:
             "stage_ms": times, "sum_of_stages_ms": sum(times.values()), "train_step_ms": whole}
 
 
+def _c1_count_recipe():
+    """c1_count's own config, as its checkpoint stores it."""
+    from amss_tpu_torch.utils.config import recipe_from_dict
+
+    with open(os.path.join(REPO, "checkpoints", "c1_count", "config.json")) as f:
+        return recipe_from_dict(json.load(f))
+
+
 def train_stage_times(recipe_name: str, reps: int) -> dict:
+    """The stages of one c1, c1_count or c2 train step at the recipe's full
+    width; c1_count's dropped sources are a stage of their own, drawn from a
+    key."""
     from amss_tpu_torch.configs.recipes import c1_stft_dpcl, c2_adapt_dpcl
     from amss_tpu_torch.models.dpcl import dpcl_loss
+    from amss_tpu_torch.models.dprnn import DropoutKey
     from amss_tpu_torch.train.engine import make_model
     from amss_tpu_torch.train.optim import Adam, make_schedule
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the default, stated
-    recipe = {"c1": c1_stft_dpcl, "c2": c2_adapt_dpcl}[recipe_name]()
-    t = recipe.train
+    recipe = {"c1": c1_stft_dpcl, "c2": c2_adapt_dpcl, "c1_count": _c1_count_recipe}[recipe_name]()
+    t, s = recipe.train, recipe.model.nb_speakers
+    key = DropoutKey(t.seed)
     model = make_model(recipe.model)
     model.init_parameters(torch.Generator().manual_seed(t.seed))
     model = model.cuda().train()
@@ -387,11 +433,16 @@ def train_stage_times(recipe_name: str, reps: int) -> dict:
     opt = Adam(params, make_schedule(t), t.grad_clip)
     rng = np.random.default_rng(0)
     sources = torch.from_numpy(
-        (rng.standard_normal((t.batch_size, 2, t.chunk_samples)) * 0.1).astype(np.float32)).cuda()
+        (rng.standard_normal((t.batch_size, s, t.chunk_samples)) * 0.1).astype(np.float32)).cuda()
 
     times = {}
+    if recipe.model.train_min_speakers is not None:
+        from amss_tpu_torch.models.front import drop_sources
+
+        sources, times["drop_sources_draw_apply"] = _timed(
+            lambda: drop_sources(sources, key, recipe.model.train_min_speakers), reps)
     enc, times["mix_encode_B1x2_targets"] = _timed(
-        lambda: model.encode_mix_and_sources(sources, training=True), reps)
+        lambda: model.encode_mix_and_sources(sources), reps)
     mix, codes, aux, _, y, w, _ = enc
     feats, times["features"] = _timed(lambda: model.front.features(codes), reps)
     h, times["norm_blstm_forward"] = _timed(lambda: model.trunk(feats), reps)
@@ -410,12 +461,12 @@ def train_stage_times(recipe_name: str, reps: int) -> dict:
     _, times["clip_adam"] = _timed(lambda: opt.step(list(grads)), reps)
 
     def step():
-        loss, _ = model.loss(sources, training=True)
+        loss, _ = model.loss(sources, rng=key)
         opt.step(list(torch.autograd.grad(loss, params)))
 
     _, whole = _timed(step, reps)
     return {"device": torch.cuda.get_device_name(0), "recipe": recipe_name,
-            "batch": t.batch_size, "samples": t.chunk_samples, "stage_ms": times,
+            "batch": t.batch_size, "speakers": s, "samples": t.chunk_samples, "stage_ms": times,
             "sum_of_stages_ms": sum(v for k, v in times.items() if k != "blstm_backward"),
             "train_step_ms": whole}
 
@@ -526,7 +577,7 @@ def enh_train_stage_times(base_run: str, reps: int) -> dict:
     _, times["clip_adam"] = _timed(lambda: opt.step(list(grads)), reps)
 
     def step():
-        loss, _ = model.loss(sources, training=True)
+        loss, _ = model.loss(sources)
         opt.step(list(torch.autograd.grad(loss, params)))
 
     _, whole = _timed(step, reps)
@@ -602,10 +653,69 @@ def dual_path_stage_times(model, batch: int, seconds: int, reps: int) -> dict:
             "separate_ms": whole, "trunk_parts_ms": parts, "blocks": len(net.blocks)}
 
 
+def timed_evaluation(est: torch.Tensor, refs: torch.Tensor, mixes: torch.Tensor,
+                     reps: int = REPS) -> dict:
+    """``evaluate_separation(bss=True, per_utt=True, with_stoi=True)`` on
+    tensors on the card: its device part (the SI-SDR columns, median ms of
+    ``reps``) and its host parts (the BSS-Eval passes and STOI, wall seconds
+    of one run), beside the whole call and its result."""
+    import time
+
+    from amss_tpu_torch.infer import evaluate
+    from amss_tpu_torch.ops.metrics import sdr_improvement
+
+    _, device_ms = _timed(lambda: sdr_improvement(est, refs, mixes), reps)
+    host = {"bss_eval_batch": 0.0, "stoi": 0.0}
+    calls = {"bss_eval_batch": 0, "stoi": 0}
+
+    def clocked(name, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                host[name] += time.perf_counter() - t0
+                calls[name] += 1
+        return run
+
+    kept = evaluate.bss_eval_batch, evaluate.stoi
+    evaluate.bss_eval_batch = clocked("bss_eval_batch", kept[0])
+    evaluate.stoi = clocked("stoi", kept[1])
+    try:
+        t0 = time.perf_counter()
+        q = evaluate.evaluate_separation(est, refs, mixes, bss=True, per_utt=True,
+                                         with_stoi=True)
+        whole_s = time.perf_counter() - t0
+    finally:
+        evaluate.bss_eval_batch, evaluate.stoi = kept
+    return {"si_sdr_device_ms": device_ms, "host_s": host, "host_calls": calls,
+            "evaluate_separation_s": whole_s, "result": q}
+
+
+def eval_stage_times(n: int = 64, t: int = 16384, reps: int = REPS) -> dict:
+    """``timed_evaluation`` of c1_dpcl's estimates of ``n`` bench.py
+    mixtures, separated on the card in batches of BATCH."""
+    from amss_tpu_torch.data.synthetic import synth_speaker_wave_v2
+
+    refs = torch.from_numpy(np.stack([
+        np.stack([synth_speaker_wave_v2(9000 + 2 * i + j, n_samples=t) for j in range(2)])
+        for i in range(n)]).astype(np.float32)).cuda()
+    mixes = refs.sum(dim=1)
+    model = load_model_from_run(os.path.join(REPO, "checkpoints", "c1_dpcl"))
+    est = torch.cat([model.separate(mixes[i : i + BATCH]) for i in range(0, n, BATCH)])
+    out = timed_evaluation(est, refs, mixes, reps)
+    q = out.pop("result")
+    return {"device": torch.cuda.get_device_name(0), "mixtures": n, "samples": t, **out,
+            **{k: q[k] for k in ("si_sdri", "sdri", "sir", "sar", "stoi_i")}}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--recipe", choices=["c1", "c2", "c3", "c4", "c6", "c7", "enh"],
+    ap.add_argument("--recipe", choices=["c1", "c1_count", "c2", "c3", "c4", "c6", "c7", "enh"],
                     default="c1")
+    ap.add_argument("--corrupt", choices=["noise", "reverb"],
+                    help="a TasNet train step with noise at 5-20 dB or RT60 800-3200 samples")
+    ap.add_argument("--eval", action="store_true", help="time evaluate_separation on c1_dpcl")
     ap.add_argument("--train", action="store_true", help="one train step instead of serving")
     ap.add_argument("--trunk", choices=["dprnn", "dpt"], help="c6 with a dual-path trunk")
     ap.add_argument("--count", action="store_true", help="time count_speakers on c1_count")
@@ -616,7 +726,13 @@ def main() -> None:
         raise SystemExit("stage_times needs a CUDA device")
     if args.trunk and args.recipe != "c6":
         raise SystemExit("--trunk applies to --recipe c6")
-    if args.count:
+    if args.corrupt and not (args.train and args.recipe in TASNET_RUNS):
+        raise SystemExit("--corrupt applies to --train of --recipe c6 or c7")
+    if args.recipe == "c1_count" and not args.train:
+        raise SystemExit("--recipe c1_count times a train step: add --train (--count serves it)")
+    if args.eval:
+        print(json.dumps(eval_stage_times()))
+    elif args.count:
         print(json.dumps(count_stage_times(BATCH, SECONDS, REPS)))
     elif args.recipe == "enh":
         print(json.dumps(enh_train_stage_times(args.base_run, REPS) if args.train
@@ -636,6 +752,9 @@ def main() -> None:
         from amss_tpu_torch.configs.recipes import c6_tasnet, c7_realtime
 
         recipe = {"c6": c6_tasnet, "c7": c7_realtime}[args.recipe]()
+        if args.corrupt:
+            recipe = dataclasses.replace(recipe, model=dataclasses.replace(
+                recipe.model, **CORRUPTIONS[args.corrupt]))
         print(json.dumps(tasnet_train_stage_times(recipe, REPS) if args.train
                          else tasnet_stage_times(args.recipe, BATCH, SECONDS, REPS)))
     elif args.recipe in ("c3", "c4"):

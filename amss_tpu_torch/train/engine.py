@@ -19,7 +19,10 @@ of ``base_run``, whose trainable tree is ``{"separator": {"blstm",
 dropout draws from a ``DropoutKey`` that the Trainer folds from
 ``train.seed``, the step and the microbatch, as the JAX package folds its key:
 a seed gives the same masks on a device, and a resumed run draws what an
-unbroken one would have drawn.
+unbroken one would have drawn.  The train-time corruptions (noise,
+reverberation, dropped sources) draw from the same key, before the trunk and
+outside its recompute.  With ``train.valid_quality`` each validation also
+logs ``valid/si_sdri``.
 
 A run dir is named ``<recipe>_<run id>`` with the JAX package's run id, and
 holds the same files: ``config.json``, ``corpus.json``, ``metrics.jsonl`` and
@@ -54,6 +57,7 @@ from amss_tpu_torch.models.dpcl import DPCLModel
 from amss_tpu_torch.models.dprnn import DropoutKey
 from amss_tpu_torch.models.l41 import L41Model
 from amss_tpu_torch.models.tasnet import TasNetModel
+from amss_tpu_torch.ops.metrics import sdr_improvement
 from amss_tpu_torch.train.optim import Adam, AdamState, make_schedule
 from amss_tpu_torch.utils.config import ModelConfig, RecipeConfig, recipe_to_dict, run_id
 from amss_tpu_torch.utils.device import resolve_device
@@ -100,10 +104,6 @@ class Trainer:
             raise NotImplementedError(
                 "train.device_data (DeviceCorpus, a corpus resident on the card) is not "
                 "ported yet: ROADMAP A.12")
-        if t.valid_quality:
-            raise NotImplementedError(
-                "train.valid_quality (SI-SDRi at validation) is not ported yet: ROADMAP "
-                "A.22 (evaluation)")
         if t.data_axis != 1:
             raise NotImplementedError(
                 f"train.data_axis={t.data_axis}: multi-GPU data parallel is ROADMAP item 23")
@@ -131,6 +131,7 @@ class Trainer:
         self.writer = MetricWriter(self.dir)
         self._ckpt = AsyncCheckpointer()
         self._warned_summaries = False
+        self._warned_quality = False
 
     # -- states ------------------------------------------------------------
     def init_state(self) -> dict:
@@ -298,7 +299,7 @@ class Trainer:
         msum: dict = {}
         for i in range(accum):
             mb = {k: v[i * mb_size : (i + 1) * mb_size] for k, v in full.items()}
-            loss, metrics = self.model.loss_from_batch(mb, training=True, rng=key.fold_in(i))
+            loss, metrics = self.model.loss_from_batch(mb, rng=key.fold_in(i))
             loss.backward()
             for k, v in metrics.items():
                 msum[k] = msum[k] + v.detach() if k in msum else v.detach()
@@ -381,13 +382,18 @@ class Trainer:
                         p.copy_(k)
                 self.model.train()
 
+    def _valid_split(self) -> tuple[str, int]:
+        """The split and first step that validation draws from.  L41's
+        centroid table covers the training speakers only, so it validates on
+        them at chunk offsets training never draws (steps from 5,000,000 on),
+        as the JAX package does."""
+        return ("train", 5_000_000) if self.recipe.model.kind == "l41" else ("valid", 0)
+
     def valid_loss(self) -> float:
-        """The mean loss over ``valid_steps`` fixed batches of the valid split.
-        L41's centroid table covers the training speakers only, so it
-        validates on them at chunk offsets training never draws (steps from
-        5,000,000 on), as the JAX package does."""
+        """The mean loss over ``valid_steps`` fixed batches of the valid split
+        (``_valid_split``)."""
         r = self.recipe.train
-        split, offset = ("train", 5_000_000) if self.recipe.model.kind == "l41" else ("valid", 0)
+        split, offset = self._valid_split()
         losses = []
         with self._serving_weights():
             for i in range(r.valid_steps):
@@ -400,8 +406,35 @@ class Trainer:
     def _validate(self, step: int) -> float:
         vloss = self.valid_loss()
         self.writer.scalars(step + 1, {"valid/loss": vloss})
+        if self.recipe.train.valid_quality:
+            self._quality_summary(step)
         self._image_summaries(step)
         return vloss
+
+    def _quality_summary(self, step: int) -> None:
+        """``valid/si_sdri``: the serving path (``separate``, L41 with its
+        speakers' ids) on one valid batch of up to 8 mixtures, PIT SI-SDR less
+        the mixture's, with the serving weights.  Best-effort: a failure is
+        logged once and the summary stops, training goes on."""
+        if not hasattr(self.model, "separate") or self._warned_quality:
+            return
+        try:
+            split, offset = self._valid_split()
+            hb = self.mixer.batch(split, offset + 999_983, min(self.recipe.train.batch_size, 8))
+            src = torch.from_numpy(hb.sources).to(self.device)
+            mix = src.sum(dim=1)
+            with self._serving_weights():
+                if self.recipe.model.kind == "l41":
+                    ids = torch.from_numpy(hb.speaker_ids).to(self.device)
+                    est = self.model.separate(mix, speaker_ids=ids)
+                else:
+                    est = self.model.separate(mix)
+            q = float(sdr_improvement(est, src, mix).mean())
+            self.writer.scalars(step + 1, {"valid/si_sdri": q})
+        except Exception:
+            self._warned_quality = True
+            logging.getLogger(__name__).warning(
+                "valid_quality summary failed; disabling for this run", exc_info=True)
 
     def _image_summaries(self, step: int) -> None:
         """Log-spectrogram images of one valid mixture and, for a model that

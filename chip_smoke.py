@@ -103,7 +103,24 @@ Phases, each printing its wall seconds:
    B1 and B2 launch 0 times (the gate is closed at 32/16);
 20. c6 with the DPT trunk (width 192, 6 blocks, 4 heads, dropout 0.1) as
    phase 19, its first step against the CPU at rate 0 and its training at
-   0.1.
+   0.1;
+21. c1_count trained from its own ``config.json`` (2x300 BLSTM, E = 20, S =
+   3, ``train_min_speakers`` 1, batch 16 x 16384, ``valid_quality`` on) for
+   COUNT_TRAIN_STEPS steps with phase 5's checks, its first step against the
+   CPU's with one key (the drawn k agree by construction), on synthetic v2
+   speakers written as 16-bit WAVs at 16 kHz and ingested into an 8 kHz store
+   (``ingest_wav_tree``); the drawn k cover 1, 2 and 3, each at 1/3 ±
+   COUNT_K_SHARE_TOL, and ``valid/si_sdri`` is logged at every validation;
+22. the c6 recipe trained clean, with noise (5-20 dB) and with reverberation
+   (RT60 800-3200 samples) for C6_CORRUPT_STEPS steps each: each apply on the
+   card against the CPU's on the same draws (CORRUPT_TOL of the peak, TF32
+   off), the realised SNR of each row its drawn one, the RIRs' direct tap,
+   unit energy and DRR, one key giving the same mixture twice, one step with
+   no host sync, and the valid loss falling;
+23. evaluation: ``evaluate_separation(bss=True, per_utt=True,
+   with_stoi=True)`` on phase 4's estimates, its SI-SDRi phase 4's own, SDRi
+   and STOIi gated (EVAL_SDRI_MIN_DB, EVAL_STOI_I_MIN), the host seconds of
+   BSS-Eval and STOI printed.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero,
@@ -314,6 +331,33 @@ DP_PADDED_SAMPLES = 12000
 # STEP_GRAD_TOL (3.3e-4 seen: sums through 50 steps and two layers in other
 # orders; a wrong mask is off by order 1)
 BLSTM_DROPOUT_TOL = 1e-4
+
+# phase 21: checkpoints/c1_count's own config.json, valid_quality on, cut to
+# COUNT_TRAIN_STEPS steps of 12000, on COUNT_TRAIN_SPEAKERS synthetic v2
+# speakers of TRAIN_SECONDS s written as 16-bit WAVs at COUNT_WAV_RATE, two
+# utterances each, and ingested into an 8 kHz store.  k ~ U{1, 2, 3} per row
+COUNT_TRAIN_STEPS = 200
+COUNT_TRAIN_SPEAKERS = 60
+COUNT_WAV_RATE = 16000
+COUNT_K_SHARE_TOL = 0.1
+# phase 22: the c6 recipe with the noise-robust and reverb-robust settings of
+# scripts/r3_wave.py, cut to C6_CORRUPT_STEPS steps each on phase 5's corpus;
+# each apply on the card held to the CPU's on the same draws within
+# CORRUPT_TOL of the peak (float32 sums in another order; TF32 would give
+# about 1e-3), the drawn DRR within RIR_DRR_TOL_DB of the RIR's
+C6_CORRUPT_STEPS = 50
+C6_CORRUPTIONS = {"noise": {"train_noise_snr_db": (5.0, 20.0)},
+                  "reverb": {"train_reverb_rt60": (800.0, 3200.0)}}
+CORRUPT_TOL = 1e-5
+RIR_DRR_TOL_DB = 0.2
+# phase 23: c1_dpcl on phase 4's protocol, the JAX package's evaluation on the
+# CPU: SDRi 7.5488 dB [6.4866, 8.6005], STOIi 0.1073 [0.0763, 0.1363] (95%
+# bootstrap intervals, `python tests/test_torch_eval.py`); gated at their
+# lower ends.  Its SI-SDRi is phase 4's within EVAL_SI_SDRI_TOL_DB (float32 on
+# the card against phase 4's float64 on the CPU)
+EVAL_SDRI_MIN_DB = 6.48
+EVAL_STOI_I_MIN = 0.076
+EVAL_SI_SDRI_TOL_DB = 1e-3
 
 # name -> (source, the TPU kernel it replaces, its design)
 KERNELS = {
@@ -820,9 +864,10 @@ def quality_mixtures(s: int = 2, n: int | None = None) -> np.ndarray:
     ]).astype(np.float32)
 
 
-def phase_quality(model) -> dict:
+def phase_quality(model, keep: dict | None = None) -> dict:
     """PIT SI-SDRi of ``model`` on bench.py's protocol for its number of
-    speakers, served by StreamingSeparator in batches of BATCH."""
+    speakers, served by StreamingSeparator in batches of BATCH; ``keep``
+    receives the references, mixtures and estimates."""
     from amss_tpu_torch.infer.streaming import BucketSpec, StreamingSeparator
     from amss_tpu_torch.ops.metrics import sdr_improvement
 
@@ -831,6 +876,8 @@ def phase_quality(model) -> dict:
     sep = StreamingSeparator(model, sample_rate=SAMPLE_RATE,
                              buckets=BucketSpec(lengths=(QUALITY_T,)))
     est = np.stack(sep.separate_all(list(mixes), max_batch=BATCH))
+    if keep is not None:
+        keep.update(refs=refs, mixes=mixes, est=est)
     imp = sdr_improvement(torch.from_numpy(est).double(), torch.from_numpy(refs).double(),
                           torch.from_numpy(mixes).double()).numpy()
     boot = np.random.default_rng(0).choice(imp, size=(10000, imp.size)).mean(axis=1)
@@ -863,12 +910,14 @@ def cancelled_gradients(model) -> set:
 
 
 def first_step_matches_cpu(tr, state0: dict, batch0, grad_tol: float = STEP_GRAD_TOL,
-                           prepare=None) -> dict:
+                           prepare=None, key=None) -> dict:
     """The card's first step against the same step on the CPU through the
     port's plain path (plain kernels, the BLSTM as a loop), from the same init
-    and batch: the loss, each term of it, and every gradient.  Neither side
-    has a dropout key, so dropout is off on both.  ``prepare(model, device)``
-    runs on each model before its step.
+    and batch: the loss, each term of it, and every gradient.  Both sides get
+    ``key``; by default neither has one, so dropout and the corruptions are
+    off.  A key may only reach host draws (dropped sources), which the card
+    and the CPU draw alike.  ``prepare(model, device)`` runs on each model
+    before its step.
 
     The autoencoder's loss, -SI-SDR + 10 L2, nearly cancels at init (about
     0.007 from terms of about 1.2), so it is held relative to the size of its
@@ -880,7 +929,7 @@ def first_step_matches_cpu(tr, state0: dict, batch0, grad_tol: float = STEP_GRAD
         if prepare is not None:
             prepare(model, device)
         batch = tr._dequantize({k: v.to(device) for k, v in tr._device_batch(batch0).items()})
-        loss, metrics = model.loss_from_batch(batch, training=True)
+        loss, metrics = model.loss_from_batch(batch, rng=key)
         loss.backward()
         grads = {n: None if p.grad is None else p.grad.detach().cpu()
                  for n, p in model.named_parameters() if p.requires_grad}
@@ -1397,7 +1446,7 @@ def bf16_step_matches_cpu(store) -> dict:
 
     def loss_and_grads(device):
         model = load_model_from_run(C6_FLAGSHIP, device=device).train()
-        loss, _ = model.loss(sources.to(device), training=True)
+        loss, _ = model.loss(sources.to(device))
         loss.backward()
         skip = unread_parameters(model)
         return float(loss.detach()), {n: p.grad.detach().cpu() for n, p in model.named_parameters()
@@ -1595,24 +1644,27 @@ def _fit_launches(recipe, steps: int) -> tuple[dict, dict]:
     steps): a TasNet step encodes the mixture (B1) and decodes (B2, whose
     backward runs B1); a clustering or L41 step encodes the mixture and the
     sources (B1 twice).  Each validation runs ``valid_steps`` loss batches and
-    the image summaries (three encodes and one separate's decode)."""
+    the image summaries (three encodes and one separate's decode), and with
+    ``valid_quality`` one more separate (an encode and a decode)."""
     t = recipe.train
     k = _gate_launches(recipe.model)
     b1, b2 = k["framed_matmul"], k["decode_ola"]
     tasnet = recipe.model.kind == "tasnet"
     step = {"framed_matmul": 2 * b1, "decode_ola": b2 if tasnet else 0}
     valid = {"framed_matmul": b1 if tasnet else 2 * b1, "decode_ola": b2 if tasnet else 0}
+    q = int(t.valid_quality)
+    summaries = {"framed_matmul": (3 + q) * b1,
+                 "decode_ola": (1 + q) * b2}
     n_valid = -(-steps // t.valid_every)
-    want = {n: step[n] * steps + (valid[n] * t.valid_steps + (3 * b1 if n == "framed_matmul"
-                                                               else b2)) * n_valid
+    want = {n: step[n] * steps + (valid[n] * t.valid_steps + summaries[n]) * n_valid
             for n in step}
     return step, want
 
 
-def phase_train_recipe(recipe, store, workdir: str,
-                       grad_tol: float = STEP_GRAD_TOL) -> tuple[dict, dict]:
-    """``recipe`` at full width through Trainer.fit with phase 5's checks;
-    returns (results, launches)."""
+def phase_train_recipe(recipe, store, workdir: str, grad_tol: float = STEP_GRAD_TOL,
+                       key=None) -> tuple[dict, dict]:
+    """``recipe`` at full width through Trainer.fit with phase 5's checks,
+    the first step's with ``key``; returns (results, launches)."""
     from amss_tpu_torch.train.engine import Trainer
 
     t = recipe.train
@@ -1620,7 +1672,7 @@ def phase_train_recipe(recipe, store, workdir: str,
     say(f"  run dir {os.path.basename(tr.dir)}")
     state0 = tr.init_state()
     batch0 = tr.mixer.batch("train", 0, t.batch_size)
-    step_check = first_step_matches_cpu(tr, state0, batch0, grad_tol=grad_tol)
+    step_check = first_step_matches_cpu(tr, state0, batch0, grad_tol=grad_tol, key=key)
     per_step = check_train_step_needs_no_host_sync(tr, batch0)
     want_step, want = _fit_launches(recipe, t.steps)
     if per_step != want_step:
@@ -1768,6 +1820,13 @@ def phase_kernel_c4(gen: torch.Generator) -> dict:
                      4.0 * (codes.numel() + syn.numel() + b * length)))
     say(f"  B2 at c4 serving: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
         f"{r['library_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})")
+    g = grad_check(f"codes {list(codes.shape)} syn [258, 256] -> {length} (c4 serving, S = 3)",
+                   lambda c, d: decode_ola(c, d, hop, length),
+                   lambda c, d: decode_ola_ref(c, d, hop, length), [codes, syn],
+                   torch.randn(b, length, generator=gen, device=dev), 2e-4, framed_matmul)
+    if g["launched"] != 1:
+        raise AssertionError(f"B2's backward at c4's shape launched B1 {g['launched']} times")
+    r.update(grad_rel_err=g["grad_rel_err"], grad_tol=GRAD_TOL)
     return r
 
 
@@ -2125,6 +2184,226 @@ def phase_dual_path(trunk: str, store, workdir: str) -> tuple[dict, dict]:
     return out, launches
 
 
+def wav_corpus(workdir: str):
+    """COUNT_TRAIN_SPEAKERS synthetic v2 speakers written as 16-bit WAVs at
+    COUNT_WAV_RATE, two utterances each, and ingested into a store at
+    SAMPLE_RATE through ``ingest_wav_tree`` (its resampler)."""
+    from amss_tpu_torch.data.store import ingest_wav_tree
+    from amss_tpu_torch.data.synthetic import SyntheticStore
+    from amss_tpu_torch.infer.evaluate import write_wav
+
+    t0 = time.perf_counter()
+    synth = SyntheticStore(COUNT_TRAIN_SPEAKERS, TRAIN_SECONDS, sample_rate=COUNT_WAV_RATE,
+                           seed=0, version=2)
+    wavs = os.path.join(workdir, "wavs_c1_count")
+    for name in synth.speakers:
+        wave = synth.waveform(name)
+        for u, part in enumerate(np.split(wave, 2)):
+            write_wav(os.path.join(wavs, name, f"utt{u}.wav"), part, sample_rate=COUNT_WAV_RATE)
+    written = time.perf_counter() - t0
+    store = ingest_wav_tree(wavs, os.path.join(workdir, "corpus_c1_count"),
+                            sample_rate=SAMPLE_RATE)
+    n = int(TRAIN_SECONDS * SAMPLE_RATE)
+    lengths = {store.n_samples(spk) for spk in store.speakers}
+    if store.sample_rate != SAMPLE_RATE or len(store.speakers) != COUNT_TRAIN_SPEAKERS or \
+            lengths != {n}:
+        raise AssertionError(f"ingested store: {store.sample_rate} Hz, "
+                             f"{len(store.speakers)} speakers of {lengths} samples")
+    say(f"  corpus {COUNT_TRAIN_SPEAKERS} x {TRAIN_SECONDS:g} s (v2) as WAVs at {COUNT_WAV_RATE} "
+        f"Hz: written {written:.2f} s, ingested at {SAMPLE_RATE} Hz "
+        f"{time.perf_counter() - t0 - written:.2f} s")
+    return store
+
+
+def phase_train_count(workdir: str) -> tuple[dict, dict]:
+    """c1_count's own config.json at full width with phase 5's checks (its
+    first step with a key, so the sources are dropped on both sides), on the
+    ingested WAV corpus; the drawn counts, valid/si_sdri at every validation,
+    and the CUDA BLSTM's prefix masks (ROADMAP C.5) checked."""
+    from amss_tpu_torch.models import blstm, front
+    from amss_tpu_torch.models.dprnn import DropoutKey
+    from amss_tpu_torch.utils.config import recipe_from_dict
+
+    with open(os.path.join(C1_COUNT, "config.json")) as f:
+        recipe = recipe_from_dict(json.load(f))
+    m, t = recipe.model, recipe.train
+    got = (m.train_min_speakers, m.nb_speakers, m.sep.hidden, m.sep.layers, m.sep.embed_dim,
+           t.batch_size, t.chunk_samples)
+    if got != (1, 3, 300, 2, 20, 16, 16384):
+        raise AssertionError(f"c1_count's config is not the one this phase was written for: {got}")
+    recipe = dataclasses.replace(recipe, train=dataclasses.replace(
+        t, steps=COUNT_TRAIN_STEPS, valid_every=COUNT_TRAIN_STEPS // 4, valid_quality=True))
+    say("c1_count's config.json (dropped sources, valid_quality)")
+    store = wav_corpus(workdir)
+    drawn, masks = [], {"calls": 0, "raised": 0}
+    draw, prefix = front.draw_active_counts, blstm.prefix_lengths
+
+    def recorded_draw(*args):
+        k = draw(*args)
+        drawn.append(k)
+        return k
+
+    def counted_prefix(mask):
+        masks["calls"] += 1
+        try:
+            return prefix(mask)
+        except ValueError:
+            masks["raised"] += 1
+            raise
+
+    front.draw_active_counts, blstm.prefix_lengths = recorded_draw, counted_prefix
+    try:
+        out, launches = phase_train_recipe(recipe, store, workdir, key=DropoutKey(t.seed))
+    finally:
+        front.draw_active_counts, blstm.prefix_lengths = draw, prefix
+    # the first step on the card and on the CPU, the step with no host sync, then fit's
+    if len(drawn) != COUNT_TRAIN_STEPS + 3:
+        raise AssertionError(f"{len(drawn)} count draws, want {COUNT_TRAIN_STEPS + 3}")
+    k = torch.cat(drawn[-COUNT_TRAIN_STEPS:])
+    shares = {int(v): float((k == v).double().mean()) for v in (1, 2, 3)}
+    if any(abs(sh - 1.0 / 3.0) > COUNT_K_SHARE_TOL for sh in shares.values()):
+        raise AssertionError(f"drawn k over the run: shares {shares}")
+    records = [json.loads(line) for line in open(os.path.join(out["run_dir"], "metrics.jsonl"))]
+    valid_steps = [r["step"] for r in records if "valid/loss" in r]
+    quality = {r["step"]: r["valid/si_sdri"] for r in records if "valid/si_sdri" in r}
+    if sorted(quality) != valid_steps or not all(np.isfinite(list(quality.values()))):
+        raise AssertionError(f"valid/si_sdri at {sorted(quality)}, validations at {valid_steps}")
+    if masks["raised"]:
+        raise AssertionError(f"the BLSTM refused {masks['raised']} masks (ROADMAP C.5)")
+    say(f"  drawn k over {COUNT_TRAIN_STEPS} steps x {t.batch_size} rows: shares {shares}; "
+        f"valid/si_sdri {[round(v, 3) for v in quality.values()]} dB; the BLSTM's prefix "
+        f"check ran {masks['calls']} times and refused none")
+    out.update(k_shares=shares, valid_si_sdri=quality, prefix_checks=masks["calls"])
+    return out, {"c1_count_train": launches}
+
+
+def check_corruptions_on_the_card(store) -> dict:
+    """Each apply on the card against the CPU's on the same draws, the
+    realised SNR of each row, the RIRs of the key's draws (causal, the direct
+    tap, unit energy, the drawn DRR), at c6's batch of 8 x 16384."""
+    from amss_tpu_torch.data.mixer import Mixer
+    from amss_tpu_torch.models import front
+    from amss_tpu_torch.models.dprnn import DropoutKey
+
+    dev = torch.device("cuda")
+    src = torch.from_numpy(Mixer(store, nb_speakers=2, chunk_samples=16384, seed=0)
+                           .batch("train", 0, 8).sources)
+    mix, key, out = src.sum(dim=1), DropoutKey(0), {}
+    snr_range = C6_CORRUPTIONS["noise"]["train_noise_snr_db"]
+    draws = front.draw_noise(key, mix.shape, snr_range, "cpu")
+    want = front.apply_noise(mix, *draws)
+    got = front.apply_noise(mix.to(dev), *(d.to(dev) for d in draws))
+    out["noise_err"] = check("noise on [8, 16384], card against CPU (same draws)", got.cpu(),
+                             want, CORRUPT_TOL * float(want.abs().max()))
+    mix_d = mix.to(dev)
+    snr, _ = front.draw_noise(key, mix.shape, snr_range, dev)
+    noisy = front.corrupt_mix(mix_d, key, snr_range)
+    real = 10.0 * torch.log10((mix_d.double() ** 2).sum(-1) / ((noisy - mix_d).double() ** 2).sum(-1))
+    out["snr_err_db"] = float((real - snr.double()).abs().max())
+    if not out["snr_err_db"] <= 0.01 or not (snr >= snr_range[0]).all() or \
+            not (snr < snr_range[1]).all():
+        raise AssertionError(f"realised SNR {real.tolist()}, drawn {snr.tolist()}")
+
+    rt60_range = C6_CORRUPTIONS["reverb"]["train_reverb_rt60"]
+    n = front.rir_length(16384, rt60_range[1])
+    draws = front.draw_reverb(key, 8, 2, n, rt60_range, (0.0, 10.0), "cpu")
+    want = front.apply_reverb(src, *draws)
+    got = front.apply_reverb(src.to(dev), *(d.to(dev) for d in draws))
+    out["reverb_err"] = check(f"reverb of [8, 2, 16384] by {n}-tap RIRs, card against CPU "
+                              "(same draws)", got.cpu(), want,
+                              CORRUPT_TOL * float(want.abs().max()))
+    at = 1000
+    x = torch.zeros((8, 2, 16384), device=dev)
+    x[:, :, at] = 1.0
+    rt60, drr, gauss = front.draw_reverb(key, 8, 2, n, rt60_range, (0.0, 10.0), dev)
+    y = front.apply_reverb(x, rt60, drr, gauss).double().cpu()
+    drr = drr.double().cpu()[..., 0]
+    direct = 1.0 / torch.sqrt(1.0 + 10.0 ** (-drr / 10.0))
+    got_drr = 10.0 * torch.log10(y[..., at] ** 2 / (y[..., at + 1:] ** 2).sum(-1))
+    out.update(rir_direct_err=float((y[..., at] - direct).abs().max()),
+               rir_energy_err=float(((y ** 2).sum(-1) - 1.0).abs().max()),
+               rir_drr_err_db=float((got_drr - drr).abs().max()))
+    if (y[..., :at] != 0.0).any() or out["rir_direct_err"] > 1e-6 or \
+            out["rir_energy_err"] > 1e-4 or out["rir_drr_err_db"] > RIR_DRR_TOL_DB or \
+            not ((drr >= 0.0) & (drr < 10.0)).all():
+        raise AssertionError(f"RIRs on the card: {out}")
+    say(f"  realised SNR within {out['snr_err_db']:.2e} dB of the drawn; RIRs causal, direct "
+        f"tap within {out['rir_direct_err']:.1e}, energy 1 within {out['rir_energy_err']:.1e}, "
+        f"DRR within {out['rir_drr_err_db']:.3f} dB of the drawn")
+    return out
+
+
+def phase_train_c6_corrupt(store, workdir: str) -> tuple[dict, dict]:
+    """The c6 recipe clean, with noise, then with reverberation, for
+    C6_CORRUPT_STEPS steps each, so the three steps compare at one run
+    length: one key's mixture twice (and another key's differing where a
+    corruption draws), one step with no host sync, the launches, and the
+    valid loss falling."""
+    from amss_tpu_torch.configs.recipes import c6_tasnet
+    from amss_tpu_torch.train.engine import Trainer
+
+    out, launches = {"checks": check_corruptions_on_the_card(store)}, {}
+    for name, over in {"clean": {}, **C6_CORRUPTIONS}.items():
+        # one validation, at the end: ms/step is the median of fit's windows
+        r = c6_tasnet(steps=C6_CORRUPT_STEPS, valid_every=C6_CORRUPT_STEPS)
+        recipe = dataclasses.replace(r, model=dataclasses.replace(r.model, **over))
+        t = recipe.train
+        tr = Trainer(recipe, store, workdir=os.path.join(workdir, "runs"))
+        say(f"  c6 {name} {over}: run dir {os.path.basename(tr.dir)}")
+        state0 = tr.init_state()
+        batch0 = tr.mixer.batch("train", 0, t.batch_size)
+        src = torch.from_numpy(batch0.sources).cuda()
+        a, b, other = (tr.model.observed_mix(src, tr.dropout_key(k)) for k in (0, 0, 1))
+        if not torch.equal(a, b) or torch.equal(a, other) != (not over):
+            raise AssertionError(f"{name}: one key's mixture differs, or two keys' "
+                                 f"{'differ' if not over else 'agree'}")
+        tr.load_state(state0)
+        per_step = check_train_step_needs_no_host_sync(tr, batch0)
+        want_step, want = _fit_launches(recipe, t.steps)
+        if per_step != want_step:
+            raise AssertionError(f"a c6 {name} step launched {per_step}, want {want_step}")
+        tr.load_state(state0)
+        valid0 = tr.valid_loss()
+        _, got, fit_s, peak = _fit_counted(tr, state0)
+        if got != want:
+            raise AssertionError(f"c6 {name} training launches {got}, want {want}")
+        valid = _valid_losses(tr.dir)
+        train_loss = [m["train/neg_pit_si_sdr"] for m in
+                      (json.loads(line) for line in open(os.path.join(tr.dir, "metrics.jsonl")))
+                      if "train/neg_pit_si_sdr" in m]
+        if not np.isfinite(train_loss).all() or not valid[-1] < valid0:
+            raise AssertionError(f"c6 {name}: train loss {train_loss}, valid loss {valid0} at "
+                                 f"init, {valid} after")
+        ms = window_ms_per_step(tr.dir, skip={TRAIN_LOG_EVERY})
+        out[name] = dict(steps=t.steps, batch=t.batch_size, chunk=t.chunk_samples, fit_s=fit_s,
+                         ms_per_step=ms, peak_bytes=peak, valid_loss_init=valid0,
+                         valid_loss=valid, train_loss_first=train_loss[0],
+                         train_loss_last=train_loss[-1], launches_per_step=per_step)
+        launches[f"c6_{name}_train"] = got
+    return out, launches
+
+
+def phase_eval(quality: dict, kept: dict) -> dict:
+    """``evaluate_separation`` on phase 4's estimates on the card: its
+    SI-SDRi phase 4's, SDRi and STOIi gated, the host parts timed."""
+    from amss_tpu_torch.tools.stage_times import timed_evaluation
+
+    est, refs, mixes = (torch.from_numpy(kept[k]).cuda() for k in ("est", "refs", "mixes"))
+    out = timed_evaluation(est, refs, mixes)
+    q = out.pop("result")
+    cols = ("si_sdri", "sdri", "sir", "sar", "stoi", "stoi_i")
+    if q["n"] != QUALITY_N or not np.isfinite([q[k] for k in cols]).all():
+        raise AssertionError(f"evaluation of {q['n']} mixtures: {q}")
+    if not abs(q["si_sdri"] - quality["si_sdri_db"]) <= EVAL_SI_SDRI_TOL_DB:
+        raise AssertionError(f"evaluate_separation's SI-SDRi {q['si_sdri']} is not phase 4's "
+                             f"{quality['si_sdri_db']}")
+    if not q["sdri"] >= EVAL_SDRI_MIN_DB or not q["stoi_i"] >= EVAL_STOI_I_MIN:
+        raise AssertionError(f"SDRi {q['sdri']:.4f} dB (gate {EVAL_SDRI_MIN_DB}), STOIi "
+                             f"{q['stoi_i']:.4f} (gate {EVAL_STOI_I_MIN})")
+    out.update({k: q[k] for k in cols}, sdri_ci=q["sdri_ci"], si_sdri_ci=q["si_sdri_ci"])
+    return out
+
+
 def main() -> None:
     faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
     t_start = time.perf_counter()
@@ -2179,7 +2458,8 @@ def main() -> None:
     say(f"phase 3 main path speed: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
-    quality = phase_quality(model)
+    kept = {}
+    quality = phase_quality(model, kept)
     say(f"quality (c1, 64 two-speaker mixtures of {QUALITY_T} samples) on {card}: "
         f"si_sdri {quality['si_sdri_db']:.3f} dB, 95% CI {quality['ci95']}")
     if not quality["si_sdri_db"] >= QUALITY_MIN_DB:
@@ -2311,10 +2591,39 @@ def main() -> None:
             enh_launches.update(dual_launches)
             say(f"phase {phase} c6 {trunk}: {time.perf_counter() - t0:.2f} s")
 
+        t0 = time.perf_counter()
+        count_train, count_train_launches = phase_train_count(workdir)
+        say(f"training (c1_count's config.json, batch {count_train['batch']} x "
+            f"{count_train['chunk']}, {count_train['steps']} steps) on {card}: "
+            f"{count_train['ms_per_step']:.3f} ms/step in fit (phase 5's c1: "
+            f"{train['ms_per_step']:.3f}), launches {count_train_launches}")
+        say(f"phase 21 c1_count training: {time.perf_counter() - t0:.2f} s")
+
+        t0 = time.perf_counter()
+        corrupt, corrupt_launches = phase_train_c6_corrupt(store, workdir)
+        for name in ("clean", *C6_CORRUPTIONS):
+            r = corrupt[name]
+            say(f"training (c6 {name}, {r['steps']} steps) on {card}: "
+                f"{r['ms_per_step']:.3f} ms/step in fit (phase 12's clean c6 over "
+                f"{train_c6['c6']['steps']} steps: {train_c6['c6']['ms_per_step']:.3f}), "
+                f"valid loss {r['valid_loss_init']:.4f} -> {r['valid_loss'][-1]:.4f}")
+        say(f"phase 22 c6 with noise and reverberation: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    evaluation = phase_eval(quality, kept)
+    say(f"evaluation (phase 4's {QUALITY_N} estimates) on {card}: si_sdri "
+        f"{evaluation['si_sdri']:.4f} dB, sdri {evaluation['sdri']:.4f} dB (gate "
+        f"{EVAL_SDRI_MIN_DB}), sir {evaluation['sir']:.4f}, sar {evaluation['sar']:.4f}, "
+        f"stoi_i {evaluation['stoi_i']:.4f} (gate {EVAL_STOI_I_MIN}); host s "
+        f"{evaluation['host_s']}, whole {evaluation['evaluate_separation_s']:.2f} s, "
+        f"SI-SDR on the card {evaluation['si_sdr_device_ms']:.3f} ms")
+    say(f"phase 23 evaluation: {time.perf_counter() - t0:.2f} s")
+
     per_path = {"c1_serve": launches, "c1_train": train_launches, "c2_serve": launches_c2,
                 **train_c2_launches, "long_form": long_launches, **serve_c6_launches,
                 **train_c6_launches, "c7_realtime": realtime_launches, **c7_launches,
-                **c3_launches, **c4_launches, **count_launches, **enh_launches}
+                **c3_launches, **c4_launches, **count_launches, **enh_launches,
+                **count_train_launches, **corrupt_launches}
     record = []
     other = {"framed_matmul": "decode_ola", "decode_ola": "framed_matmul"}
     for name, (source, replaces, design) in KERNELS.items():
@@ -2351,13 +2660,14 @@ def main() -> None:
         if name == "decode_ola":
             record[-1]["c4"] = {key: c4_b2[key] for key in (
                 "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err",
-                "tol")}
+                "tol", "grad_rel_err", "grad_tol")}
     say(json.dumps({"main_path": speed, "quality": quality, "training": train,
                     "c2_serving": speed_c2, "c2_quality": quality_c2, "c2_training": train_c2,
                     "long_form": long_form, "c6_serving": serve_c6, "c6_training": train_c6,
                     "c7_realtime": realtime, "c7": c7, "c3": c3,
                     "c4": c4, "count": count, "enh": enh, "c6_dprnn": dual["dprnn"],
-                    "c6_dpt": dual["dpt"], "card": card,
+                    "c6_dpt": dual["dpt"], "c1_count_training": count_train,
+                    "c6_corrupt_training": corrupt, "evaluation": evaluation, "card": card,
                     "total_s": time.perf_counter() - t_start}))
     say(card)
     say(json.dumps({"kernels": record}))

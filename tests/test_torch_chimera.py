@@ -143,7 +143,7 @@ def test_loss_and_gradients_match_jax_grad(model_over):
     src = (np.random.default_rng(2).standard_normal((2, 3, 2048)) * 0.1).astype(np.float32)
     (jl, jmet), jg = jax.value_and_grad(lambda p: jm.loss(p, jnp.asarray(src)), has_aux=True)(jp)
     model = params_from_jax(_port_cfg(jcfg), _np(jp), device="cpu").train()
-    loss, metrics = model.loss(torch.from_numpy(src), training=True)
+    loss, metrics = model.loss(torch.from_numpy(src))
     assert set(metrics) == set(jmet)
     for k, v in jmet.items():
         assert abs(float(metrics[k].detach()) - float(v)) <= 1e-5 * abs(float(v)) + 1e-9, k

@@ -60,3 +60,19 @@ def test_ptxas_report_and_sass_counts_are_read_per_function(monkeypatch):
     assert facts == dict(instances=2, registers=191, spill_bytes=24, HMMA=1, HGMMA=0)
     with pytest.raises(AssertionError, match="framed_matmul_kernel"):
         chip_smoke.kernel_facts(ptxas, sass, "framed_matmul_kernel")
+
+
+def test_fit_launches_count_the_quality_summary():
+    """A validation runs its loss batches (two B1 each), the image summaries
+    (three B1, one B2) and, with valid_quality, one separate (a B1, a B2)."""
+    import dataclasses
+
+    from amss_tpu_torch.configs.recipes import c1_stft_dpcl
+
+    r = c1_stft_dpcl(steps=200, valid_every=50)
+    step, want = chip_smoke._fit_launches(r, 200)
+    assert step == {"framed_matmul": 2, "decode_ola": 0}
+    assert want == {"framed_matmul": 400 + 4 * (2 * r.train.valid_steps + 3), "decode_ola": 4}
+    quality = dataclasses.replace(r, train=dataclasses.replace(r.train, valid_quality=True))
+    assert chip_smoke._fit_launches(quality, 200) == (
+        step, {"framed_matmul": want["framed_matmul"] + 4, "decode_ola": 8})

@@ -124,7 +124,7 @@ def test_every_parameter_gradient_matches_jax_grad():
     jgrads = jax.grad(lambda p: jmodel.loss(p, jnp.asarray(sources))[0])(params)
     jgrads = _np_tree(jgrads)
     model.train()
-    loss, _ = model.loss(torch.from_numpy(sources), training=True)
+    loss, _ = model.loss(torch.from_numpy(sources))
     loss.backward()
     trained = {n: p.grad for n, p in model.named_parameters() if p.requires_grad}
     assert not any(n.startswith("blstm.lstm.bias_hh") for n in trained)
@@ -164,24 +164,32 @@ def test_init_draws_the_reference_distributions():
 
 
 def test_training_raises_for_what_is_not_ported():
-    """Dropout no longer raises (it is ported, tests/test_torch_dropout.py):
-    without a key it is off, as the JAX package's is without one, and a key
-    turns it on.  The train-time corruptions still raise (ROADMAP item 20)."""
+    """The name is kept from when dropout and the train-time corruptions
+    raised.  Both are ported (tests/test_torch_dropout.py,
+    test_torch_augment.py): without a key each is off, as in the JAX package,
+    and a key turns it on."""
     cfg = ModelConfig(sep=SeparatorConfig(hidden=8, layers=1, embed_dim=3, dropout=0.1))
     model = DPCLModel(cfg)
     model.init_parameters(torch.Generator().manual_seed(0))
     sources = torch.randn((1, 2, 1024), generator=torch.Generator().manual_seed(1)) * 0.1
     with torch.no_grad():
         plain = model.loss(sources)[0]
-        assert torch.equal(model.loss(sources, training=True)[0], plain)
-        assert not torch.equal(model.loss(sources, training=True, rng=DropoutKey(3))[0], plain)
-    for over in ({"train_noise_snr_db": (0.0, 10.0)}, {"train_reverb_rt60": (0.2, 0.6)},
+        assert torch.equal(model.loss(sources)[0], plain)
+        assert not torch.equal(model.loss(sources, rng=DropoutKey(3))[0], plain)
+    clean = DPCLModel(ModelConfig(sep=SeparatorConfig(hidden=8, layers=1, embed_dim=3)))
+    clean.init_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        plain = clean.loss(sources)[0]
+    for over in ({"train_noise_snr_db": (0.0, 10.0)}, {"train_reverb_rt60": (800.0, 3200.0)},
                  {"train_min_speakers": 1}):
         cfg = ModelConfig(sep=SeparatorConfig(hidden=8, layers=1, embed_dim=3), **over)
         model = DPCLModel(cfg)
-        model.loss(sources)
-        with pytest.raises(NotImplementedError, match="ROADMAP item 20"):
-            model.loss(sources, training=True)
+        model.init_parameters(torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            assert torch.equal(model.loss(sources)[0], plain)
+            keyed = [model.loss(sources, rng=DropoutKey(k))[0] for k in range(4)]
+        assert all(torch.isfinite(v) for v in keyed)
+        assert any(not torch.equal(v, plain) for v in keyed), over
 
 
 def test_params_to_jax_inverts_params_from_jax():

@@ -227,7 +227,7 @@ def test_loss_and_gradients_match_jax_grad(runs, variant, base, grad_tol):
         jm.base = _Fixed(jm.base, jnp.asarray(est))
         model._frozen[0] = _Fixed(model.base, torch.from_numpy(est))
     (jl, jmet), jg = jax.value_and_grad(lambda p: jm.loss(p, jnp.asarray(src)), has_aux=True)(jp)
-    loss, metrics = model.loss(torch.from_numpy(src), training=True)
+    loss, metrics = model.loss(torch.from_numpy(src))
     assert set(metrics) == set(jmet)
     assert abs(loss.item() - float(jl)) <= 1e-5 * abs(float(jl))
     loss.backward()

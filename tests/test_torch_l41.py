@@ -114,7 +114,7 @@ def test_loss_and_gradients_match_jax_grad(ids):
     (jl, _), jg = jax.value_and_grad(
         lambda p: jm.loss(p, jnp.asarray(src), jnp.asarray(ids)), has_aux=True)(jp)
     model.train()
-    loss, _ = model.loss(torch.from_numpy(src), torch.from_numpy(ids), training=True)
+    loss, _ = model.loss(torch.from_numpy(src), torch.from_numpy(ids))
     assert abs(loss.item() - float(jl)) <= 1e-5 * abs(float(jl))
     loss.backward()
     want = {n: v.numpy() for n, v in named_from_jax(_np(jg)).items()}

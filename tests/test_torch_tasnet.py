@@ -106,7 +106,7 @@ def test_loss_and_gradients_match_jax_and_ignore_source_order(s):
     src = (np.random.default_rng(s).standard_normal((2, s, 2048)) * 0.1).astype(np.float32)
     (jl, _), jg = jax.value_and_grad(lambda p: jm.loss(p, jnp.asarray(src)), has_aux=True)(jp)
     model = params_from_jax(_port_cfg(jcfg), _np(jp), device="cpu")
-    loss, _ = model.loss(torch.from_numpy(src), training=True)
+    loss, _ = model.loss(torch.from_numpy(src))
     assert abs(loss.item() - float(jl)) <= 1e-5 * abs(float(jl))
     loss.backward()
     want = {n: v.numpy() for n, v in named_from_jax(_np(jg)).items()}
@@ -144,20 +144,27 @@ def test_weights_round_trip_on_the_checkpoints(run):
 def test_the_trunks_still_to_port_raise():
     """The name is kept from when the dual-path trunks and dropout raised:
     both are ported (tests/test_torch_dprnn.py, test_torch_dpt.py and
-    test_torch_dropout.py hold them against the JAX package), and what still
-    raises is a train-time corruption (ROADMAP item 20)."""
+    test_torch_dropout.py hold them against the JAX package), and so are the
+    train-time corruptions (test_torch_augment.py): a noisy config trains with
+    a key and is clean without one."""
     for trunk in ("dprnn", "dpt"):
         model = TasNetModel(_port_cfg(_small(trunk=trunk, blocks=2, chunk_frames=8)))
         assert model.trunk_dim == 16 and hasattr(model, trunk)
-    noisy = dataclasses.replace(_port_cfg(_small()), train_noise_snr_db=(5.0, 15.0))
-    with pytest.raises(NotImplementedError, match="item 20"):
-        TasNetModel(noisy).loss(torch.zeros((1, 2, 2048)), training=True)
+    noisy = TasNetModel(dataclasses.replace(_port_cfg(_small()), train_noise_snr_db=(5.0, 15.0)))
+    noisy.init_parameters(torch.Generator().manual_seed(0))
+    clean = TasNetModel(_port_cfg(_small()))
+    clean.init_parameters(torch.Generator().manual_seed(0))
+    mix = torch.randn((1, 2, 2048), generator=torch.Generator().manual_seed(2)) * 0.1
+    with torch.no_grad():
+        assert torch.equal(noisy.loss(mix)[0], clean.loss(mix)[0])
+        keyed = noisy.loss(mix, rng=DropoutKey(0))[0]
+        assert torch.isfinite(keyed) and not torch.equal(keyed, clean.loss(mix)[0])
     model = TasNetModel(_port_cfg(_small(dropout=0.1)))
     model.init_parameters(torch.Generator().manual_seed(0))
     sources = torch.randn((1, 2, 2048), generator=torch.Generator().manual_seed(1)) * 0.1
     with torch.no_grad():
         plain = model.loss(sources)[0]  # evaluation: no key, no dropout
-        assert torch.equal(model.loss(sources, training=True)[0], plain)
-        dropped = model.loss(sources, training=True, rng=DropoutKey(0))[0]
+        assert torch.equal(model.loss(sources)[0], plain)
+        dropped = model.loss(sources, rng=DropoutKey(0))[0]
         assert not torch.equal(dropped, plain)
-        assert torch.equal(model.loss(sources, training=True, rng=DropoutKey(0))[0], dropped)
+        assert torch.equal(model.loss(sources, rng=DropoutKey(0))[0], dropped)

@@ -198,9 +198,15 @@ def test_fit_lowers_the_loss_and_resumes_exactly(store, tmp_path):
 
 
 def test_trainer_raises_without_a_card_and_for_what_is_not_ported(store, tmp_path, monkeypatch):
-    for over in ({"device_data": True}, {"valid_quality": True}, {"data_axis": 2}):
+    for over in ({"device_data": True}, {"data_axis": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(_tiny(recipes, **over), store, workdir=str(tmp_path), device="cpu")
+    # valid_quality is ported (tests/test_torch_valid_quality.py): it trains
+    # and logs valid/si_sdri
+    quality = Trainer(_tiny(recipes, steps=1, valid_every=1, valid_quality=True), store,
+                      workdir=str(tmp_path), device="cpu")
+    quality.fit(log_every=1)
+    assert 1 in _metrics(quality.dir, "valid/si_sdri")
     r = _tiny(recipes)
     # the enhancer is ported (tests/test_torch_enhance.py); without a base run
     # it has nothing to refine
