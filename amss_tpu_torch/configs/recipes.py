@@ -153,3 +153,17 @@ def c6_dual_path(trunk: str, **over) -> RecipeConfig:
     r = c6_tasnet(**over)
     return dataclasses.replace(r, model=dataclasses.replace(
         r.model, sep=dataclasses.replace(r.model.sep, **sep)))
+
+
+# The CLI's recipe names, the JAX package's (``amss_tpu/configs/recipes.py``).
+ALL_RECIPES = {
+    "c1": c1_stft_dpcl,
+    "c2_pretrain": c2_pretrain_adapt,
+    "c2": c2_adapt_dpcl,
+    "c3": c3_l41,
+    "c4": c4_chimera_3mix,
+    "c5": c5_streaming,
+    "c6": c6_tasnet,
+    "c7": c7_realtime,
+    "enh": enh_dpcl,
+}

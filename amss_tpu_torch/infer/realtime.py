@@ -25,9 +25,14 @@ device and one separated block back, and nothing else waits for the device:
   zero padding;
 * OLA tail ``[B, S, lag]``: the partial overlap-add of the last frames.
 
-The frame counter is a host integer; the pre-stream mask (the ``ls - 1``
-frames before sample 0 in the first push) and the end-of-utterance decode
-mask (frames at or past ``end_frame``) are built on the device from it.
+* frame counter ``frame_base``, an int64 scalar: the pre-stream mask (the
+  ``ls - 1`` frames before sample 0 in the first push) and the
+  end-of-utterance decode mask (frames at or past ``end_frame``) are built
+  on the device from it.
+
+``step(state, chunk, end_frame) -> (block, state')`` is a pure function of
+the state, so ``infer/export.py`` exports it as one program; a push runs it
+and keeps the new state.
 
 Order of sums: every stage runs the multiply-adds of the offline path, but
 not always in its order.  The norm's running sums restart at each push and
@@ -93,10 +98,8 @@ class RealtimeSeparator:
         self.n_spk = c.nb_speakers
         self.long_stream = long_stream
         self._dw_shapes = dw_state_shapes(s.expansion * s.hidden, s.blocks, s.repeats, s.kernel)
-        self._frames = torch.arange(self.hop, dtype=torch.int64, device=self.device)
         self._end = None  # (host end frames, their device copy)
         self._state = self._init_state()
-        self._frame_base = -(self.ls - 1)  # global index of the next push's first frame
         self._pending = None  # (host block, copy-done event) from push_async
         self._warm = False  # the first push ever is booked as warm-up
         self._timed_pushes = 0  # pushes after it, across all streams
@@ -117,6 +120,8 @@ class RealtimeSeparator:
             "norm_carry": (zeros(b), zeros(b), zeros(b)),
             "dw": [zeros(b, t, ch) for t, ch in self._dw_shapes],
             "ola_tail": zeros(b, self.n_spk, self.lag),
+            # global index of the next push's first frame
+            "frame_base": torch.tensor(-(self.ls - 1), dtype=torch.int64, device=dev),
         }
 
     def reset(self) -> None:
@@ -124,42 +129,41 @@ class RealtimeSeparator:
         Carried state belongs to one stream per slot, so call it between
         utterances."""
         self._state = self._init_state()
-        self._frame_base = -(self.ls - 1)
         self._pending = None
 
     # ----------------------------------------------------------------- step
     # The stages of a push, in order.  Each reads the state and changes
-    # nothing; ``_step`` runs them and then commits the new state.
-    def _masks(self, end_frame: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    # nothing; ``step`` runs them and returns the new state.
+    def _masks(self, state: dict, end_frame: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """-> valid [B, hop] (zero on the pre-stream frames) and the decode
         mask, which also zeroes frames at or past each stream's end frame
         (``separate_stream``'s zero-padded tail), as offline."""
-        g = self._frames + self._frame_base  # [hop] global frame indices
+        frames = torch.arange(self.hop, dtype=torch.int64, device=end_frame.device)
+        g = frames + state["frame_base"]  # [hop] global frame indices
         valid = (g >= 0).to(torch.float32)[None].expand(self.b, self.hop)
         return valid, valid * (g[None, :] < end_frame[:, None]).to(torch.float32)
 
-    def _encode(self, chunk: torch.Tensor, valid: torch.Tensor):
+    def _encode(self, state: dict, chunk: torch.Tensor, valid: torch.Tensor):
         """Frame the encoder tail + chunk on the offline frame grid -> (tail +
         chunk [B, lag + c], codes [B, hop, N], aux)."""
-        x = torch.cat([self._state["enc_tail"], chunk], dim=-1)
+        x = torch.cat([state["enc_tail"], chunk], dim=-1)
         codes, aux = self.model.front.encode(x)
         return x, codes * valid[..., None], aux
 
-    def _features_and_norm(self, codes: torch.Tensor, valid: torch.Tensor):
+    def _features_and_norm(self, state: dict, codes: torch.Tensor, valid: torch.Tensor):
         """Causal smoothing over the carried codes, then the cumulative norm
         (Welford's with ``long_stream``) -> (smoothing tail + codes, normed
         [B, hop, N], norm carry)."""
-        st = self._state
-        cat = torch.cat([st["smooth_tail"], codes], dim=1)
+        cat = torch.cat([state["smooth_tail"], codes], dim=1)
         feats = self.model.front.features(cat)[:, cat.shape[1] - self.hop:]
         norm = cumulative_norm_welford if self.long_stream else cumulative_norm
-        normed, carry = norm(feats, valid, carry=st["norm_carry"])
+        normed, carry = norm(feats, valid, carry=state["norm_carry"])
         return cat, normed, carry
 
-    def _trunk(self, normed: torch.Tensor, valid: torch.Tensor):
+    def _trunk(self, state: dict, normed: torch.Tensor, valid: torch.Tensor):
         """The causal TCN over the new frames -> (h, new conv state)."""
         model = self.model
-        return tcn_stack_streaming(model.tcn, normed, self._state["dw"], mask=valid,
+        return tcn_stack_streaming(model.tcn, normed, state["dw"], mask=valid,
                                    blocks_per_repeat=model.cfg.sep.blocks,
                                    compute_dtype=model.compute_dtype)
 
@@ -169,27 +173,33 @@ class RealtimeSeparator:
         return torch.sigmoid(dense(model.proj_mask, h, model.compute_dtype)).reshape(
             self.b, self.hop, model.cfg.front.feature_dim, self.n_spk)
 
-    def _decode(self, codes, aux, m, dec_valid):
+    def _decode(self, state: dict, codes, aux, m, dec_valid):
         """Decode + streaming overlap-add -> (block [B, S, c], new OLA tail)."""
         c_samp, lag = self.c, self.lag
         y = self.model.apply_masks_and_decode(codes * dec_valid[..., None], aux, m,
                                               c_samp + lag)  # [B, S, c + lag]
         est = y[..., :c_samp].clone()
-        est[..., :lag] += self._state["ola_tail"]
+        est[..., :lag] += state["ola_tail"]
         return est, y[..., c_samp:]
 
     @torch.no_grad()
+    def step(self, state: dict, chunk: torch.Tensor, end_frame: torch.Tensor
+             ) -> tuple[torch.Tensor, dict]:
+        """One push as a pure function: (state, chunk [B, c], end_frame [B]
+        int64), all on the device -> (block [B, S, c], the next state).  It
+        changes neither ``state`` nor the separator."""
+        valid, dec_valid = self._masks(state, end_frame)
+        x, codes, aux = self._encode(state, chunk, valid)
+        cat, normed, carry = self._features_and_norm(state, codes, valid)
+        h, dw = self._trunk(state, normed, valid)
+        est, ola_tail = self._decode(state, codes, aux, self._head(h), dec_valid)
+        return est, {"enc_tail": x[:, self.c:], "smooth_tail": cat[:, self.hop:],
+                     "norm_carry": carry, "dw": dw, "ola_tail": ola_tail,
+                     "frame_base": state["frame_base"] + self.hop}
+
     def _step(self, chunk: torch.Tensor, end_frame: torch.Tensor) -> torch.Tensor:
-        """chunk [B, c] on the device, end_frame [B] int64 on the device ->
-        [B, S, c]; advances the state."""
-        valid, dec_valid = self._masks(end_frame)
-        x, codes, aux = self._encode(chunk, valid)
-        cat, normed, carry = self._features_and_norm(codes, valid)
-        h, dw = self._trunk(normed, valid)
-        est, ola_tail = self._decode(codes, aux, self._head(h), dec_valid)
-        self._state = {"enc_tail": x[:, self.c:], "smooth_tail": cat[:, self.hop:],
-                       "norm_carry": carry, "dw": dw, "ola_tail": ola_tail}
-        self._frame_base += self.hop
+        """``step`` on the separator's own state, which it advances."""
+        est, self._state = self.step(self._state, chunk, end_frame)
         return est
 
     # ----------------------------------------------------------------- host

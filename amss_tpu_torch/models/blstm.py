@@ -13,6 +13,12 @@ ways to run them:
   runs on CUDA, in FP32 (TF32 off), and trains (cuDNN's backward needs the
   module in training mode).  The lengths come from the caller when it has
   them on the host; otherwise the mask is copied to the host, once a call.
+* ``traced``: two unidirectional ``torch.lstm`` calls a layer over the whole
+  bucket, the reverse one on each row reversed within its own length by one
+  ``gather``.  It reads no host data, so ``torch.export`` can trace it, and
+  it computes ``loop``'s function for prefix masks (it does not check that
+  the mask is one).  Every exported program runs it; live calls keep
+  ``loop`` on the CPU and ``packed`` on CUDA.
 
 With a dropout key and a rate, dropout follows every layer, the last one
 included, as in the JAX package's ``blstm_stack``; cuDNN then runs one layer
@@ -80,6 +86,10 @@ class BLSTM(nn.Module):
         ``lengths`` (int64 on the host) are the mask's prefix lengths, where
         the caller has them: the packed path then copies nothing to the host.
         ``rng`` (a ``models/dprnn.py::DropoutKey``) turns dropout on."""
+        if torch.compiler.is_exporting():
+            if rng is not None and dropout_rate > 0.0:
+                raise NotImplementedError("an exported BLSTM runs without dropout")
+            return self.traced(x, mask)
         cuda = x.device.type == "cuda"
         if cuda and mask is not None and lengths is None:
             lengths = prefix_lengths(mask)
@@ -140,6 +150,44 @@ class BLSTM(nn.Module):
         h = x
         for layer in range(self.layers):
             h = self._layer_loop(h, mask, layer)
+        return h
+
+    def _one_way(self, x: torch.Tensor, layer: int, reverse: bool) -> torch.Tensor:
+        """One direction of one layer over every step of ``x`` ``[B, T, In]``:
+        one unidirectional ``torch.lstm`` call on that direction's weights."""
+        sfx = f"_l{layer}" + ("_reverse" if reverse else "")
+        w = [getattr(self.lstm, n + sfx) for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
+        h0 = x.new_zeros((1, x.shape[0], self.hidden))
+        return torch.lstm(x, (h0, h0), w, True, 1, 0.0, self.training, False, True)[0]
+
+    def traced(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        """Every layer as two unidirectional calls over the whole bucket, with
+        no host data.  With a prefix mask, row b's reverse direction runs on
+        its first ``len_b`` steps reversed in place (step t reads ``len_b - 1
+        - t``; the padded steps keep their places, after the valid ones), and
+        each layer's output is zeroed on the padded steps, so the valid steps
+        see what ``loop`` computes.  On CUDA it runs cuDNN in FP32 (TF32
+        off); an exported program's caller sets that flag itself."""
+        if mask is None:
+            def rev(h):
+                return torch.flip(h, dims=(1,))
+        else:
+            steps = torch.arange(x.shape[1], device=x.device)[None, :]
+            lengths = (mask > 0).sum(dim=1, keepdim=True)  # [B, 1], on the device
+            idx = torch.where(steps < lengths, lengths - 1 - steps, steps)[..., None]
+
+            def rev(h):  # an involution: it also un-reverses
+                return torch.gather(h, 1, idx.expand(-1, -1, h.shape[-1]))
+        flags = torch.backends.cudnn.flags(
+            enabled=True, benchmark=False, deterministic=False, allow_tf32=False
+        )
+        h = x
+        with flags:
+            for layer in range(self.layers):
+                h = torch.cat([self._one_way(h, layer, False),
+                               rev(self._one_way(rev(h), layer, True))], dim=-1)
+                if mask is not None:
+                    h = h.masked_fill(mask[..., None] <= 0, 0.0)
         return h
 
     def _cudnn(self, inp, layer: int | None, batch_sizes=None) -> torch.Tensor:

@@ -223,8 +223,10 @@ def dprnn_stack(
     k = chunk_frames
     h = dense(dprnn.in_proj, x, compute_dtype)
     d = h.shape[-1]
-    # the BLSTM's lengths on the host, needed only where cuDNN packs
-    lengths = path_lengths(t, k, mask, b) if x.device.type == "cuda" else None
+    # the BLSTM's lengths on the host, needed only where cuDNN packs (not in
+    # an exported program, whose BLSTM is the traced one)
+    packs = x.device.type == "cuda" and not torch.compiler.is_exporting()
+    lengths = path_lengths(t, k, mask, b) if packs else None
     h, m_g = pad_to_chunks(h, mask, k)
     for bp, r in zip(dprnn.blocks, split_key(rng, len(dprnn.blocks))):
         args = (bp, h, m_g, lengths, compute_dtype, dropout_rate, r)

@@ -1,12 +1,14 @@
 """B1: fused framing + basis product (``amss_tpu/ops/pallas/framed_matmul.py``).
 
-``framed_matmul(x, basis, hop)`` computes ``frames(x, win, hop) @ basis``.  A
-CUDA tensor goes to the hand-written kernel in ``csrc/framed_matmul.cu``,
-which runs the product on the tensor cores in 3xTF32 (FP32 accuracy) and
-feeds ``mma.sync`` from the staged signal span, so no frame tensor exists; a
-CPU tensor goes to the plain version ``framed_matmul_ref``; anything else
-raises.  ``framed_matmul.launches`` counts the kernel's launches, those of
-``decode_ola``'s backward included.
+``framed_matmul(x, basis, hop)`` computes ``frames(x, win, hop) @ basis``
+through the operator ``amss::framed_matmul`` (``torch.library``, so an
+exported program keeps it as one node).  A CUDA tensor goes to the
+hand-written kernel in ``csrc/framed_matmul.cu``, which runs the product on
+the tensor cores in 3xTF32 (FP32 accuracy) and feeds ``mma.sync`` from the
+staged signal span, so no frame tensor exists; a CPU tensor goes to the plain
+version ``framed_matmul_ref``; anything else raises.
+``framed_matmul.launches`` counts the kernel's launches, those of
+``decode_ola``'s backward and of exported programs included.
 
 It is differentiable as the JAX package's ``custom_vjp`` is: the adjoint of
 framing + product is product + overlap-add, so ``dx`` is B2 (``decode_ola``)
@@ -21,7 +23,7 @@ import functools
 
 import numpy as np
 import torch
-from torch.autograd.function import once_differentiable
+from torch.utils.flop_counter import register_flop_formula
 
 from amss_tpu_torch.ops.framing import frame_signal, num_frames
 from amss_tpu_torch.ops.kernels.build import c_ints, check_device, check_launch, load_library
@@ -51,7 +53,7 @@ def profitable(win: int, hop: int) -> bool:
     return win // hop >= 4 and hop >= 64
 
 
-def _check(x: torch.Tensor, basis: torch.Tensor, hop: int) -> int:
+def _check(x: torch.Tensor, basis: torch.Tensor, hop: int) -> None:
     win = basis.shape[0]
     if win % hop != 0 or hop % 8 != 0:
         raise ValueError(f"framed_matmul needs win%hop==0 and hop%8==0, got {win}/{hop}")
@@ -66,14 +68,14 @@ def _check(x: torch.Tensor, basis: torch.Tensor, hop: int) -> int:
     if nf <= 0:
         raise ValueError(f"signal length {x.shape[-1]} shorter than window {win}")
     check_device(x.device, "framed_matmul")
-    return nf
 
 
-def _launch(x: torch.Tensor, basis: torch.Tensor, hop: int, nf: int) -> torch.Tensor:
+def _launch(x: torch.Tensor, basis: torch.Tensor, hop: int) -> torch.Tensor:
     x = x.contiguous()
     basis = basis.contiguous()
     b, t = x.shape
     win, k = basis.shape
+    nf = num_frames(t, win, hop)
     sizes = c_ints(b, t, win, hop, k, nf)
     out = torch.empty((b, nf, k), dtype=torch.float32, device=x.device)
     lib = load_library()
@@ -87,30 +89,54 @@ def _launch(x: torch.Tensor, basis: torch.Tensor, hop: int, nf: int) -> torch.Te
     return out
 
 
-class _FramedMatmul(torch.autograd.Function):
-    """B1 with its adjoint: ``dx`` through B2, ``dbasis = frames(x)ᵀ·g``."""
+# The kernel as the operator ``amss::framed_matmul``, so that ``torch.export``
+# keeps it as one node of a program and a loaded program launches it: the CPU
+# runs the plain version, CUDA the kernel (counted in ``launches``, from
+# eager calls and exported programs alike), and the fake implementation gives
+# the output's shape without touching a device.
+@torch.library.custom_op("amss::framed_matmul", mutates_args=(), device_types="cpu")
+def framed_matmul_op(x: torch.Tensor, basis: torch.Tensor, hop: int) -> torch.Tensor:
+    return framed_matmul_ref(x, basis, hop)
 
-    @staticmethod
-    def forward(ctx, x, basis, hop: int, nf: int, force: bool):
-        ctx.hop, ctx.force = hop, force
-        ctx.save_for_backward(x, basis)
-        if x.device.type == "cpu":
-            return framed_matmul_ref(x, basis, hop)
-        return _launch(x, basis, hop, nf)
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, g):
-        from amss_tpu_torch.ops.kernels.ola import decode_ola
+framed_matmul_op.register_kernel("cuda")(_launch)
 
-        x, basis = ctx.saved_tensors
-        dx = dbasis = None
-        if ctx.needs_input_grad[0]:
-            dx = decode_ola(g, basis.T, ctx.hop, length=x.shape[-1], force=ctx.force)
-        if ctx.needs_input_grad[1]:
-            frames = frame_signal(x, basis.shape[0], ctx.hop)
-            dbasis = torch.einsum("bnw,bnk->wk", frames, g)
-        return dx, dbasis, None, None, None
+
+@framed_matmul_op.register_fake
+def _(x, basis, hop):
+    return x.new_empty((x.shape[0], num_frames(x.shape[-1], basis.shape[0], hop), basis.shape[1]))
+
+
+def _setup(ctx, inputs, output):
+    x, basis, hop = inputs
+    ctx.hop = hop
+    # the op is reached where the gate is open or the call was forced; the
+    # backward is forced exactly where the gate is closed
+    ctx.force = not profitable(basis.shape[0], hop)
+    ctx.save_for_backward(x, basis)
+
+
+def _backward(ctx, g):
+    """B1's adjoint: ``dx`` through B2, ``dbasis = frames(x)ᵀ·g``."""
+    from amss_tpu_torch.ops.kernels.ola import decode_ola
+
+    x, basis = ctx.saved_tensors
+    dx = dbasis = None
+    if ctx.needs_input_grad[0]:
+        dx = decode_ola(g, basis.T, ctx.hop, length=x.shape[-1], force=ctx.force)
+    if ctx.needs_input_grad[1]:
+        frames = frame_signal(x, basis.shape[0], ctx.hop)
+        dbasis = torch.einsum("bnw,bnk->wk", frames, g)
+    return dx, dbasis, None
+
+
+framed_matmul_op.register_autograd(_backward, setup_context=_setup)
+
+
+@register_flop_formula(torch.ops.amss.framed_matmul)
+def _flops(x_shape, basis_shape, hop, *args, out_shape=None, **kwargs) -> int:
+    b, nf, k = out_shape
+    return 2 * b * nf * basis_shape[0] * k
 
 
 def framed_matmul(
@@ -129,8 +155,8 @@ def framed_matmul(
     its basis and waveforms need no gradient."""
     if not force and not profitable(basis.shape[0], hop):
         return framed_matmul_ref(x, basis, hop)
-    nf = _check(x, basis, hop)
-    return _FramedMatmul.apply(x, basis, hop, nf, force)
+    _check(x, basis, hop)
+    return framed_matmul_op(x, basis, hop)
 
 
 framed_matmul.launches = 0

@@ -1,12 +1,14 @@
 """B2: fused synthesis product + overlap-add (``amss_tpu/ops/pallas/ola.py``).
 
 ``decode_ola(codes, basis, hop, length)`` computes
-``overlap_add(codes @ basis, hop, length)``.  A CUDA tensor goes to the
+``overlap_add(codes @ basis, hop, length)`` through the operator
+``amss::decode_ola`` (``torch.library``).  A CUDA tensor goes to the
 hand-written kernel in ``csrc/decode_ola.cu``, which sums each output
 hop-chunk's overlapping frames on the tensor cores in 3xTF32 (FP32 accuracy),
 with no atomics and no frame tensor; a CPU tensor goes to the plain version
 ``decode_ola_ref``; anything else raises.  ``decode_ola.launches`` counts the
-kernel's launches, those of ``framed_matmul``'s backward included.
+kernel's launches, those of ``framed_matmul``'s backward and of exported
+programs included.
 
 It is differentiable as the JAX package's ``custom_vjp`` is: the adjoint of
 product + overlap-add is framing + product, so ``dcodes`` is B1
@@ -20,7 +22,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.autograd.function import once_differentiable
+from torch.utils.flop_counter import register_flop_formula
 
 from amss_tpu_torch.ops.framing import frame_signal, overlap_add
 from amss_tpu_torch.ops.kernels.build import c_ints, check_device, check_launch, load_library
@@ -68,31 +70,52 @@ def _launch(codes: torch.Tensor, basis: torch.Tensor, hop: int, length: int) -> 
     return out
 
 
-class _DecodeOla(torch.autograd.Function):
-    """B2 with its adjoint: ``dcodes`` through B1, ``dbasis = codesᵀ·frames(g)``."""
+# The kernel as the operator ``amss::decode_ola``, as ``amss::framed_matmul``
+# is: the CPU runs the plain version, CUDA the kernel (counted in
+# ``launches``), and the fake implementation gives the output's shape.
+@torch.library.custom_op("amss::decode_ola", mutates_args=(), device_types="cpu")
+def decode_ola_op(codes: torch.Tensor, basis: torch.Tensor, hop: int,
+                  length: int) -> torch.Tensor:
+    return decode_ola_ref(codes, basis, hop, length)
 
-    @staticmethod
-    def forward(ctx, codes, basis, hop: int, length: int, force: bool):
-        ctx.hop, ctx.force = hop, force
-        ctx.save_for_backward(codes, basis)
-        if codes.device.type == "cpu":
-            return decode_ola_ref(codes, basis, hop, length)
-        return _launch(codes, basis, hop, length)
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, g):
-        codes, basis = ctx.saved_tensors
-        win = basis.shape[1]
-        t_full = (codes.shape[1] - 1) * ctx.hop + win
-        # undo the trim or zero-pad, so g covers the whole overlap-add extent
-        g = F.pad(g, (0, t_full - g.shape[-1])) if g.shape[-1] < t_full else g[:, :t_full]
-        dcodes = dbasis = None
-        if ctx.needs_input_grad[0]:
-            dcodes = framed_matmul(g, basis.T, ctx.hop, force=ctx.force)
-        if ctx.needs_input_grad[1]:
-            dbasis = torch.einsum("bnk,bnw->kw", codes, frame_signal(g, win, ctx.hop))
-        return dcodes, dbasis, None, None, None
+decode_ola_op.register_kernel("cuda")(_launch)
+
+
+@decode_ola_op.register_fake
+def _(codes, basis, hop, length):
+    return codes.new_empty((codes.shape[0], length))
+
+
+def _setup(ctx, inputs, output):
+    codes, basis, hop, _ = inputs
+    ctx.hop = hop
+    ctx.force = not profitable(basis.shape[1], hop)  # as framed_matmul's
+    ctx.save_for_backward(codes, basis)
+
+
+def _backward(ctx, g):
+    """B2's adjoint: ``dcodes`` through B1, ``dbasis = codesᵀ·frames(g)``."""
+    codes, basis = ctx.saved_tensors
+    win = basis.shape[1]
+    t_full = (codes.shape[1] - 1) * ctx.hop + win
+    # undo the trim or zero-pad, so g covers the whole overlap-add extent
+    g = F.pad(g, (0, t_full - g.shape[-1])) if g.shape[-1] < t_full else g[:, :t_full]
+    dcodes = dbasis = None
+    if ctx.needs_input_grad[0]:
+        dcodes = framed_matmul(g, basis.T, ctx.hop, force=ctx.force)
+    if ctx.needs_input_grad[1]:
+        dbasis = torch.einsum("bnk,bnw->kw", codes, frame_signal(g, win, ctx.hop))
+    return dcodes, dbasis, None, None
+
+
+decode_ola_op.register_autograd(_backward, setup_context=_setup)
+
+
+@register_flop_formula(torch.ops.amss.decode_ola)
+def _flops(codes_shape, basis_shape, *args, out_shape=None, **kwargs) -> int:
+    b, nf, k = codes_shape
+    return 2 * b * nf * k * basis_shape[1]
 
 
 def decode_ola(
@@ -112,7 +135,7 @@ def decode_ola(
     _check(codes, basis, hop)
     if length is None:
         length = (codes.shape[1] - 1) * hop + basis.shape[1]
-    return _DecodeOla.apply(codes, basis, hop, length, force)
+    return decode_ola_op(codes, basis, hop, length)
 
 
 decode_ola.launches = 0

@@ -187,7 +187,7 @@ def heads_stage_times(recipe: str, batch: int, seconds: int, reps: int) -> dict:
 @torch.no_grad()
 def realtime_push_times(model, chunk: int, streams: int, reps: int) -> dict:
     """One ``RealtimeSeparator`` push taken apart into the stage methods its
-    ``_step`` runs, its state warmed by a few pushes first; each stage runs on
+    ``step`` runs, its state warmed by a few pushes first; each stage runs on
     the state the push would see, and none of them changes it."""
     from amss_tpu_torch.infer.realtime import RealtimeSeparator
 
@@ -198,19 +198,20 @@ def realtime_push_times(model, chunk: int, streams: int, reps: int) -> dict:
         rt.push(wave)
     chunk_t = torch.from_numpy(wave).cuda()
     ends = rt._end_frames(None)
+    st = rt._state
     times = {}
 
     def timed(name, fn):
         out, times[name] = _timed(fn, reps)
         return out
 
-    valid, dec_valid = timed("masks", lambda: rt._masks(ends))
-    _, codes, aux = timed("encode_plain_abs_sign", lambda: rt._encode(chunk_t, valid))
+    valid, dec_valid = timed("masks", lambda: rt._masks(st, ends))
+    _, codes, aux = timed("encode_plain_abs_sign", lambda: rt._encode(st, chunk_t, valid))
     _, normed, _ = timed("smoothing_log_cumulative_norm",
-                         lambda: rt._features_and_norm(codes, valid))
-    h, _ = timed("tcn_streaming", lambda: rt._trunk(normed, valid))
+                         lambda: rt._features_and_norm(st, codes, valid))
+    h, _ = timed("tcn_streaming", lambda: rt._trunk(st, normed, valid))
     m = timed("mask_head_sigmoid", lambda: rt._head(h))
-    timed("decode_plain_ola_tail", lambda: rt._decode(codes, aux, m, dec_valid))
+    timed("decode_plain_ola_tail", lambda: rt._decode(st, codes, aux, m, dec_valid))
     _, queued = _timed(lambda: rt._dispatch(wave, None), reps)
     _, pushed = _timed(lambda: rt.push(wave), reps)
     return {"chunk": chunk, "streams": streams, "frames": rt.hop, "stage_ms": times,

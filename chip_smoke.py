@@ -120,7 +120,30 @@ Phases, each printing its wall seconds:
 23. evaluation: ``evaluate_separation(bss=True, per_utt=True,
    with_stoi=True)`` on phase 4's estimates, its SI-SDRi phase 4's own, SDRi
    and STOIi gated (EVAL_SDRI_MIN_DB, EVAL_STOI_I_MIN), the host seconds of
-   BSS-Eval and STOI printed.
+   BSS-Eval and STOI printed;
+24. the c1 artifact: ``checkpoints/c1_dpcl`` exported for cuda
+   (``infer/export.py``, buckets 16384 and 64000, batch 8) and served from a
+   fresh process that imports no model module: phase 3's utterances twice
+   (RTF, utterances/s, B1 and B2 launched from the exported program as
+   often as phase 3 launches them) and phase 4's mixtures (SI-SDRi ≥
+   QUALITY_MIN_DB); the traced BLSTM's embeddings against the packed one's
+   (EMBED_TOL of the peak), the artifact's rows against phase 4's live
+   estimates in the best speaker order (a row under AGREE_MIN_DB whose
+   embeddings agree is ROADMAP C.2's seeding tie), and live serving's RTF
+   with each BLSTM path in turns;
+25. int8: c1 exported with int8 parameters, its program on the dequantized
+   weights bit for bit the fp32 program's on them, its rows against the live
+   model on the dequantized weights, its SI-SDRi and the bytes saved;
+26. the realtime artifact: ``checkpoints/c7_causal`` exported at chunk
+   REALTIME_CHUNK for 1 and RT_ART_STREAMS streams, streamed against
+   offline (C7_STREAM_TOL of the peak; ragged streams against each alone),
+   ms per push;
+27. the server and the CLI: ``SeparationServer`` on 127.0.0.1 over the
+   phase-24 and phase-26 artifacts, every answer equal to the direct
+   artifact call, request latency; then make-synthetic, train
+   (CLI_TRAIN_STEPS c1 steps at full width), evaluate, separate, export,
+   separate-exported and profile through ``amss_tpu_torch.cli.main`` on the
+   card, the profile's trace holding the card's kernels.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero,
@@ -129,6 +152,7 @@ and so does a machine without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import faulthandler
 import json
@@ -2404,6 +2428,473 @@ def phase_eval(quality: dict, kept: dict) -> dict:
     return out
 
 
+# -- slice 8: the serving surface ---------------------------------------------
+
+ART_LENGTHS = (16384, 64000)
+ART_CHILD_TIMEOUT_S = 300
+AGREE_MIN_DB = 40.0  # a row of the artifact at least this close to the live path
+EMBED_TOL = 1e-5  # traced against packed BLSTM embeddings, of the peak
+RT_ART_STREAMS = 16
+
+# Run in a fresh interpreter: separate phase 3's utterances twice and phase
+# 4's mixtures once through a ServingArtifact, with no model module imported.
+ARTIFACT_CHILD = r"""
+import json, sys, time
+import numpy as np
+import torch
+from amss_tpu_torch.infer.export import ServingArtifact
+from amss_tpu_torch.ops.kernels.framed_matmul import framed_matmul
+from amss_tpu_torch.ops.kernels.ola import decode_ola
+
+path, inp, outp = sys.argv[1:4]
+data = np.load(inp)
+t0 = time.perf_counter()
+art = ServingArtifact(path)
+load_s = time.perf_counter() - t0
+waves = list(data["waves"])
+passes = []
+for p in range(2):
+    framed_matmul.launches = decode_ola.launches = 0
+    m = art.meter
+    m.compute_seconds = m.audio_seconds = 0.0
+    m.utterances = m.calls = 0
+    est = art.separate_all(waves)
+    passes.append(dict(rtf=m.rtf, utterances_per_s=m.utterances_per_sec,
+                       warmup_s=m.warmup_seconds,
+                       launches={"framed_matmul": framed_matmul.launches,
+                                 "decode_ola": decode_ola.launches}))
+quality = np.stack(art.separate_all(list(data["quality"])))
+models = sorted(m for m in sys.modules if m.startswith("amss_tpu_torch.models"))
+np.savez(outp, est=np.stack(est), quality=quality)
+print(json.dumps(dict(load_s=load_s, passes=passes, model_modules=models,
+                      device=str(art.device))))
+"""
+
+
+def phase3_waves() -> list:
+    """Phase 3's utterances: N_UTTS of SECONDS of noise from seed 0."""
+    rng = np.random.default_rng(0)
+    return [rng.standard_normal(SECONDS * SAMPLE_RATE).astype(np.float32) * 0.3
+            for _ in range(N_UTTS)]
+
+
+@contextlib.contextmanager
+def _traced_blstm(model):
+    """Run ``model``'s BLSTM on its ``traced`` path for the block (live
+    calls take ``packed`` on the card)."""
+    model.blstm.forward = lambda x, mask=None, **kw: model.blstm.traced(x, mask)
+    try:
+        yield
+    finally:
+        del model.blstm.forward
+
+
+def embeddings_both(model, mixes: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """c1's embeddings of ``mixes`` [n, T] on the card, in batches of BATCH,
+    through the packed BLSTM and through the traced one."""
+    out = ([], [])
+    with torch.no_grad():
+        for i in range(0, len(mixes), BATCH):
+            mix = torch.from_numpy(mixes[i : i + BATCH]).cuda()
+            feats = model.front.features(model.front.encode(mix)[0])
+            out[0].append(model.embed(feats).cpu().numpy())
+            with _traced_blstm(model):
+                out[1].append(model.embed(feats).cpu().numpy())
+    return np.concatenate(out[0]), np.concatenate(out[1])
+
+
+def _rtf_pass(model, waves: list) -> float:
+    """RTF of one warm pass of StreamingSeparator over ``waves``."""
+    from amss_tpu_torch.infer.streaming import BucketSpec, StreamingSeparator
+
+    sep = StreamingSeparator(model, sample_rate=SAMPLE_RATE,
+                             buckets=BucketSpec(lengths=(len(waves[0]),)))
+    sep.separate_all(waves, max_batch=BATCH)
+    sep.meter.compute_seconds = sep.meter.audio_seconds = 0.0
+    sep.separate_all(waves, max_batch=BATCH)
+    return sep.meter.rtf
+
+
+def _si_sdri(est: np.ndarray, refs: np.ndarray, mixes: np.ndarray) -> float:
+    from amss_tpu_torch.ops.metrics import sdr_improvement
+
+    return float(sdr_improvement(torch.from_numpy(est).double(), torch.from_numpy(refs).double(),
+                                 torch.from_numpy(mixes).double()).mean())
+
+
+def _rows_against_live(what: str, got: np.ndarray, live: np.ndarray, emb_err: np.ndarray
+                       ) -> dict:
+    """Per-row SI-SDR of ``got`` against the live path's ``live`` in the best
+    speaker order; a row under AGREE_MIN_DB whose embeddings agree within
+    EMBED_TOL is k-means' seeding tie (ROADMAP C.2)."""
+    db = _db(got, live, best_order=True)
+    low = [i for i in range(len(db)) if db[i] < AGREE_MIN_DB]
+    say(f"  {what} against the live path, best speaker order: min {db.min():.2f} dB, median "
+        f"{np.median(db):.2f} dB, {len(low)} of {len(db)} rows under {AGREE_MIN_DB:g} dB")
+    unexplained = [i for i in low if emb_err[i] > EMBED_TOL]
+    if unexplained:
+        raise AssertionError(f"{what}: rows {unexplained} differ and so do their embeddings")
+    if low:
+        say(f"  rows {low}: their embeddings agree within {EMBED_TOL:g} of the peak, so "
+            "k-means' seeding tie (ROADMAP C.2) picked other seeds")
+    return dict(min_db=float(db.min()), median_db=float(np.median(db)), rows_below=low,
+                per_row_db=db.tolist())
+
+
+def phase_artifact_c1(model, kept: dict, workdir: str) -> tuple[dict, dict]:
+    """c1_dpcl exported for cuda and served from a fresh process with no
+    model module; its launches against phase 3's, its SI-SDRi on phase 4's
+    mixtures, its rows against phase 4's live estimates, and the traced
+    BLSTM against the packed one (embeddings, and phase 3's RTF)."""
+    from amss_tpu_torch.infer.export import export_serving
+
+    out_dir = os.path.join(workdir, "c1_artifact")
+    t0 = time.perf_counter()
+    export_serving(model, out_dir, lengths=ART_LENGTHS, batch=BATCH, platforms=("cuda",),
+                   sample_rate=SAMPLE_RATE)
+    export_s = time.perf_counter() - t0
+    sizes = {f: os.path.getsize(os.path.join(out_dir, f)) for f in sorted(os.listdir(out_dir))}
+    say(f"  export (c1, buckets {ART_LENGTHS}, batch {BATCH}, cuda): {export_s:.2f} s, files "
+        f"{sizes}")
+    waves = phase3_waves()
+    inp, outp = os.path.join(workdir, "art_in.npz"), os.path.join(workdir, "art_out.npz")
+    np.savez(inp, waves=np.stack(waves), quality=kept["mixes"])
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", ARTIFACT_CHILD, out_dir, inp, outp], cwd=REPO,
+                          capture_output=True, text=True, timeout=ART_CHILD_TIMEOUT_S)
+    child_s = time.perf_counter() - t0
+    log(proc.stderr[-4000:])
+    if proc.returncode != 0:
+        raise AssertionError(f"the artifact's process failed ({proc.returncode})")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    if child["model_modules"] or child["device"] != "cuda":
+        raise AssertionError(f"the artifact's process imported {child['model_modules']} "
+                             f"and ran on {child['device']}")
+    calls = N_UTTS // BATCH
+    for p, want in zip(child["passes"], (calls + 1, calls)):
+        if p["launches"] != {"framed_matmul": want, "decode_ola": want}:
+            raise AssertionError(f"the exported program launched {p['launches']}, phase 3 "
+                                 f"launches {want} of each in that pass")
+    res = np.load(outp)
+    if res["est"].shape != (N_UTTS, 2, len(waves[0])) or not np.isfinite(res["est"]).all():
+        raise AssertionError(f"the artifact returned {res['est'].shape}")
+    si_sdri = _si_sdri(res["quality"], kept["refs"], kept["mixes"])
+    say(f"  artifact from a fresh process (no model module): load {child['load_s']:.2f} s, "
+        f"warm-up {child['passes'][0]['warmup_s']:.2f} s, rtf {child['passes'][1]['rtf']:.6f} "
+        f"(pass 1 {child['passes'][0]['rtf']:.6f}), "
+        f"{child['passes'][1]['utterances_per_s']:.2f} utterances/s, launches per pass "
+        f"{[p['launches'] for p in child['passes']]}, si_sdri {si_sdri:.3f} dB; process "
+        f"{child_s:.2f} s")
+    if not si_sdri >= QUALITY_MIN_DB:
+        raise AssertionError(f"the artifact's SI-SDRi {si_sdri:.3f} dB < {QUALITY_MIN_DB} dB")
+
+    packed, traced = embeddings_both(model, kept["mixes"])
+    peak = np.abs(packed).max()
+    emb_err = np.abs(traced - packed).reshape(len(packed), -1).max(axis=1) / peak
+    say(f"  c1 embeddings, traced against packed BLSTM on the card: {emb_err.max():.3e} of the "
+        f"peak at most (tol {EMBED_TOL:g})")
+    if not emb_err.max() <= EMBED_TOL:
+        raise AssertionError(f"traced and packed embeddings differ by {emb_err.max():.3e}")
+    rows = _rows_against_live("artifact", res["quality"], kept["est"], emb_err)
+
+    # ROADMAP S1.c: phase 3's serving with each BLSTM path, in turns
+    rtf = {"packed": [], "traced": []}
+    for path in ("packed", "traced", "traced", "packed"):
+        if path == "traced":
+            with _traced_blstm(model):
+                rtf[path].append(_rtf_pass(model, waves))
+        else:
+            rtf[path].append(_rtf_pass(model, waves))
+    say(f"  live c1 serving (phase 3's utterances, pass 2) with the packed BLSTM: rtf "
+        f"{rtf['packed']}; with the traced one: {rtf['traced']}")
+    out = dict(export_s=export_s, files=sizes, load_s=child["load_s"],
+               warmup_s=child["passes"][0]["warmup_s"], rtf_pass1=child["passes"][0]["rtf"],
+               rtf_pass2=child["passes"][1]["rtf"],
+               utterances_per_s=child["passes"][1]["utterances_per_s"],
+               process_s=child_s, si_sdri_db=si_sdri, embed_err=float(emb_err.max()),
+               rows=rows, live_rtf_packed=rtf["packed"], live_rtf_traced=rtf["traced"])
+    return out, child["passes"][1]["launches"]
+
+
+def phase_artifact_int8(model, kept: dict, quality: dict, workdir: str) -> dict:
+    """c1 exported int8 (bucket QUALITY_T): the program on the dequantized
+    weights bit for bit the fp32 artifact's on them, its rows against the
+    live model on the dequantized weights, its SI-SDRi and the bytes saved."""
+    from amss_tpu_torch.infer.export import ServingArtifact, export_serving
+    from amss_tpu_torch.infer.quantize import dequantize_state_dict, quantize_state_dict
+    from amss_tpu_torch.infer.streaming import BucketSpec, StreamingSeparator
+    from amss_tpu_torch.weights import params_from_jax, params_to_jax
+
+    q_dir, f_dir = os.path.join(workdir, "c1_int8"), os.path.join(workdir, "c1_artifact")
+    t0 = time.perf_counter()
+    export_serving(model, q_dir, lengths=(QUALITY_T,), batch=BATCH, platforms=("cuda",),
+                   sample_rate=SAMPLE_RATE, quantize="int8")
+    export_s = time.perf_counter() - t0
+    q_art, f_art = ServingArtifact(q_dir), ServingArtifact(f_dir)
+    f_art.params = q_art.params
+    mixes = list(kept["mixes"])
+    got = np.stack(q_art.separate_all(mixes))
+    if not np.array_equal(got, np.stack(f_art.separate_all(mixes))):
+        raise AssertionError("the int8 artifact differs from the fp32 program on its weights")
+    deq = params_from_jax(model.cfg, dequantize_state_dict(quantize_state_dict(
+        params_to_jax(model))))
+    live = np.stack(StreamingSeparator(deq, sample_rate=SAMPLE_RATE, buckets=BucketSpec(
+        lengths=(QUALITY_T,))).separate_all(mixes, max_batch=BATCH))
+    packed, traced = embeddings_both(deq, kept["mixes"])
+    emb_err = np.abs(traced - packed).reshape(len(packed), -1).max(axis=1) / np.abs(packed).max()
+    rows = _rows_against_live("int8 artifact against the live model on the dequantized "
+                              "weights", got, live, emb_err)
+    si_sdri = _si_sdri(got, kept["refs"], kept["mixes"])
+    f32 = os.path.getsize(os.path.join(f_dir, "params.msgpack"))
+    q8 = os.path.getsize(os.path.join(q_dir, "params.msgpack"))
+    say(f"  int8 c1 artifact: si_sdri {si_sdri:.3f} dB (live fp32 {quality['si_sdri_db']:.3f}), "
+        f"params.msgpack {q8} bytes against {f32} ({1 - q8 / f32:.4f} saved; meta "
+        f"{q_art.meta['params_bytes_saved_frac']}), export {export_s:.2f} s")
+    if not si_sdri >= QUALITY_MIN_DB:
+        raise AssertionError(f"the int8 artifact's SI-SDRi {si_sdri:.3f} dB < {QUALITY_MIN_DB}")
+    return dict(export_s=export_s, si_sdri_db=si_sdri, params_bytes=q8, params_bytes_f32=f32,
+                bytes_saved_frac=q_art.meta["params_bytes_saved_frac"], rows=rows)
+
+
+def _push_ms(art, seconds: int) -> float:
+    """ms per push of ``seconds`` of noise per stream through a
+    RealtimeArtifact, the first push left out."""
+    rng = np.random.default_rng(1)
+    n = seconds * SAMPLE_RATE // art.c
+    chunks = (rng.standard_normal((n, art.b, art.c)) * 0.3).astype(np.float32)
+    art.reset()
+    art.push(chunks[0])
+    t0 = time.perf_counter()
+    for c in chunks[1:]:
+        art.push(c)
+    return 1e3 * (time.perf_counter() - t0) / (n - 1)
+
+
+def phase_artifact_realtime(workdir: str) -> tuple[dict, dict]:
+    """c7_causal exported for cuda at REALTIME_CHUNK x 1 and x RT_ART_STREAMS
+    streams: streamed against offline (phase 13's bound), ragged streams
+    against each alone, ms per push."""
+    from amss_tpu_torch.infer.export import RealtimeArtifact, export_realtime
+    from amss_tpu_torch.infer.streaming import BucketSpec, StreamingSeparator
+    from amss_tpu_torch.weights import load_model_from_run
+
+    model = load_model_from_run(C7_CAUSAL)
+    refs = quality_mixtures(2)
+    mixes = refs.sum(axis=1)
+    offline = np.stack(StreamingSeparator(model, sample_rate=SAMPLE_RATE, buckets=BucketSpec(
+        lengths=(QUALITY_T,))).separate_all(list(mixes), max_batch=BATCH))
+    out, arts = {}, {}
+    for streams in (1, RT_ART_STREAMS):
+        d = os.path.join(workdir, f"c7_rt_b{streams}")
+        t0 = time.perf_counter()
+        export_realtime(model, d, chunk_samples=REALTIME_CHUNK, n_streams=streams,
+                        platforms=("cuda",), sample_rate=SAMPLE_RATE)
+        out[f"export_s_b{streams}"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        arts[streams] = RealtimeArtifact(d)
+        out[f"load_s_b{streams}"] = time.perf_counter() - t0
+    reset_launches()
+    one = arts[1]
+    streamed = np.stack([one.separate_stream(m) for m in mixes])
+    out["one_stream_err"] = _stream_err(streamed, offline, f"artifact, one stream, {len(mixes)} "
+                                        f"mixtures, chunk {REALTIME_CHUNK}")
+    lengths = [QUALITY_T - 613 * i for i in range(RT_ART_STREAMS)]
+    waves = [mixes[i, :n] for i, n in enumerate(lengths)]
+    got = arts[RT_ART_STREAMS].separate_streams(waves)
+    alone = [model.separate(torch.from_numpy(w[None]).cuda())[0].cpu().numpy() for w in waves]
+    out["ragged_err"] = max(_stream_err(g, a, f"artifact stream {i} of {RT_ART_STREAMS} "
+                                        f"({len(a[0])} samples) against it alone offline")
+                            for i, (g, a) in enumerate(zip(got, alone)))
+    for streams, art in arts.items():
+        out[f"ms_per_push_b{streams}"] = _push_ms(art, REALTIME_SPEED_SECONDS)
+    say(f"  realtime artifact (c7, chunk {REALTIME_CHUNK}): {out['ms_per_push_b1']:.3f} ms per "
+        f"push at 1 stream, {out[f'ms_per_push_b{RT_ART_STREAMS}']:.3f} at {RT_ART_STREAMS}; "
+        f"export {out['export_s_b1']:.2f} s, load {out['load_s_b1']:.2f} s")
+    launches = launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"c7 launched {launches}; the gate is closed at 32/16")
+    return out, launches
+
+
+SERVER_REQUESTS = 16
+CLI_TRAIN_STEPS = 20
+
+
+def _http(port: int, method: str, path: str, body: bytes | None = None,
+          headers: dict | None = None) -> tuple[int, bytes]:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request(method, path, body=body, headers=headers or {})
+        r = conn.getresponse()
+        return r.status, r.read()
+    finally:
+        conn.close()
+
+
+def _serving(artifact_dir: str):
+    """A SeparationServer on 127.0.0.1 and an ephemeral port, answering from
+    a thread; the caller shuts it down."""
+    import threading
+
+    from amss_tpu_torch.infer.server import SeparationServer
+
+    srv = SeparationServer(artifact_dir, port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv
+
+
+def phase_server(workdir: str) -> dict:
+    """The phase-24 c1 artifact and the phase-26 one-stream c7 artifact behind
+    SeparationServer: each response equal to the direct artifact call, and
+    the request latency."""
+    import base64
+
+    from amss_tpu_torch.infer.export import RealtimeArtifact, ServingArtifact
+    from amss_tpu_torch.infer.server import wav_bytes_decode, wav_bytes_encode
+
+    out = {}
+    art_dir = os.path.join(workdir, "c1_artifact")
+    srv = _serving(art_dir)
+    try:
+        status, data = _http(srv.port, "GET", "/healthz")
+        if status != 200 or json.loads(data)["kind"] != "offline":
+            raise AssertionError(f"/healthz answered {status} {data[:200]}")
+        direct = ServingArtifact(art_dir)
+        # ragged lengths, each served under its own prefix mask (ROADMAP C.5)
+        waves = [w[: len(w) - 997 * i] for i, w in enumerate(phase3_waves()[:SERVER_REQUESTS])]
+        lat = []
+        for i, w in enumerate(waves):
+            body = wav_bytes_encode(w, SAMPLE_RATE)
+            t0 = time.perf_counter()
+            status, data = _http(srv.port, "POST", "/separate", body)
+            lat.append(1e3 * (time.perf_counter() - t0))
+            if status != 200:
+                raise AssertionError(f"/separate answered {status}: {data[:300]}")
+            got = [base64.b64decode(s) for s in json.loads(data)["speakers"]]
+            est = direct.separate_all([wav_bytes_decode(body)[0]])[0]
+            if got != [wav_bytes_encode(e, SAMPLE_RATE) for e in est]:
+                raise AssertionError(f"request {i}: the server's answer differs from the "
+                                     "artifact's")
+        status, _ = _http(srv.port, "POST", "/separate", wav_bytes_encode(waves[0], 16000))
+        if status != 400:
+            raise AssertionError(f"a 16 kHz wav got {status}, want 400")
+        out["separate_ms"] = lat
+        say(f"  server, c1 artifact: {SERVER_REQUESTS} /separate requests of "
+            f"{len(waves[-1]) / SAMPLE_RATE:.2f}-{len(waves[0]) / SAMPLE_RATE:.2f} s, each equal "
+            f"to the artifact's answer; latency median {np.median(lat):.2f} ms, first (the "
+            f"program's load and warm-up) {lat[0]:.2f} ms")
+    finally:
+        srv.shutdown()
+
+    rt_dir = os.path.join(workdir, "c7_rt_b1")
+    srv = _serving(rt_dir)
+    try:
+        direct = RealtimeArtifact(rt_dir)
+        mix = quality_mixtures(2, 1).sum(axis=1)[0]
+        c = direct.c
+        n = -(-(len(mix) + direct.lag) // c)
+        padded = np.zeros(n * c, np.float32)
+        padded[: len(mix)] = mix
+        end = direct.front.frames_for(len(mix))
+        _http(srv.port, "POST", "/stream/reset", b"")
+        blocks, lat = [], []
+        for i in range(n):
+            chunk = padded[i * c : (i + 1) * c]
+            t0 = time.perf_counter()
+            status, data = _http(srv.port, "POST", "/stream/push", chunk.tobytes(),
+                                 {"X-End-Frame": str(end)})
+            lat.append(1e3 * (time.perf_counter() - t0))
+            if status != 200:
+                raise AssertionError(f"/stream/push answered {status}: {data[:300]}")
+            blocks.append(np.frombuffer(data, np.float32).reshape(-1, c))
+        want = [direct.push(padded[i * c : (i + 1) * c], end_frame=end) for i in range(n)]
+        if not np.array_equal(np.stack(blocks), np.stack(want)):
+            raise AssertionError("the stream server's blocks differ from the artifact's")
+        streamed = np.concatenate(blocks, axis=-1)[:, direct.lag : direct.lag + len(mix)]
+        offline = direct.separate_stream(mix)
+        out["stream_err"] = _stream_err(streamed, offline, "server stream against the artifact's "
+                                        "whole utterance")
+        out["push_ms"] = lat
+        say(f"  server, c7 realtime artifact: {n} /stream/push requests of {c} samples, each "
+            f"equal to the artifact's block; latency median {np.median(lat):.2f} ms")
+    finally:
+        srv.shutdown()
+    return out
+
+
+def _cli(argv: list[str]) -> list[str]:
+    """``amss_tpu_torch.cli.main(argv)`` on the card; its stdout lines."""
+    import contextlib
+    import io
+
+    from amss_tpu_torch.cli import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli_main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    log("\n".join(lines[-5:]))
+    return lines
+
+
+def phase_cli(workdir: str) -> tuple[dict, dict]:
+    """make-synthetic, train, evaluate, separate, export, separate-exported
+    and profile through the CLI on the card (c1 at full width, a few steps);
+    the profile's trace must hold the card's kernels."""
+    from amss_tpu_torch.infer.evaluate import write_wav
+
+    corpus, runs = os.path.join(workdir, "cli_corpus"), os.path.join(workdir, "cli_runs")
+    secs = {}
+
+    def timed(name, argv):
+        t0 = time.perf_counter()
+        lines = _cli(argv)
+        secs[name] = time.perf_counter() - t0
+        return lines
+
+    reset_launches()
+    timed("make-synthetic", ["make-synthetic", "--out", corpus, "--speakers", "12",
+                             "--seconds", "20"])
+    common = ["--recipe", "c1", "--corpus", corpus]
+    lines = timed("train", ["train", *common, "--workdir", runs, "--steps",
+                            str(CLI_TRAIN_STEPS), "--valid-every", str(CLI_TRAIN_STEPS // 2)])
+    run_dir = next(x.split("run dir: ")[1] for x in lines if x.startswith("run dir: "))
+    ev = json.loads(timed("evaluate", ["evaluate", *common, "--run-dir", run_dir,
+                                       "--n-mixtures", "8"])[-1])
+    if not np.isfinite(ev["si_sdri"]):
+        raise AssertionError(f"evaluate printed {ev}")
+    mix_wav = os.path.join(workdir, "cli_mix.wav")
+    write_wav(mix_wav, quality_mixtures(2, 1).sum(axis=1)[0], SAMPLE_RATE)
+    timed("separate", ["separate", *common, "--run-dir", run_dir, "--wav", mix_wav, "--out",
+                       os.path.join(workdir, "cli_sep")])
+    exp = os.path.join(workdir, "cli_export")
+    files = json.loads(timed("export", ["export", *common, "--run-dir", run_dir, "--out", exp,
+                                        "--lengths", str(QUALITY_T), "--serve-batch", "2",
+                                        "--platforms", "cuda"])[-1])["files"]
+    timed("separate-exported", ["separate-exported", "--export-dir", exp, "--wav", mix_wav,
+                                "--out", os.path.join(workdir, "cli_sep2")])
+    for d in ("cli_sep", "cli_sep2"):
+        if sorted(os.listdir(os.path.join(workdir, d))) != ["cli_mix_spk0.wav", "cli_mix_spk1.wav"]:
+            raise AssertionError(f"{d}: {os.listdir(os.path.join(workdir, d))}")
+    trace_dir = os.path.join(workdir, "cli_trace")
+    pr = json.loads(timed("profile", ["profile", *common, "--workdir", runs,
+                                      "--profile-steps", "5", "--trace-dir", trace_dir])[-1])
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    if not kernels:
+        raise AssertionError("the profile's trace holds no CUDA kernel event")
+    launches = launch_counts()
+    say(f"  CLI on the card (c1, {CLI_TRAIN_STEPS} steps): seconds {secs}; evaluate si_sdri "
+        f"{ev['si_sdri']:.3f} dB on 8 mixtures, rtf {ev['rtf']:.6f}; export files {files}; "
+        f"profile p50 {pr['p50_s'] * 1e3:.3f} ms a step, {kernels} kernel events in the trace; "
+        f"launches {launches}")
+    return dict(seconds=secs, evaluate=ev, export_files=files, profile=pr,
+                trace_kernel_events=kernels), launches
+
+
 def main() -> None:
     faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
     t_start = time.perf_counter()
@@ -2619,11 +3110,30 @@ def main() -> None:
         f"SI-SDR on the card {evaluation['si_sdr_device_ms']:.3f} ms")
     say(f"phase 23 evaluation: {time.perf_counter() - t0:.2f} s")
 
+    with tempfile.TemporaryDirectory(prefix="amss_serve_") as workdir:
+        t0 = time.perf_counter()
+        artifact, artifact_launches = phase_artifact_c1(model, kept, workdir)
+        say(f"phase 24 c1 artifact: {time.perf_counter() - t0:.2f} s")
+
+        t0 = time.perf_counter()
+        int8 = phase_artifact_int8(model, kept, quality, workdir)
+        say(f"phase 25 int8 artifact: {time.perf_counter() - t0:.2f} s")
+
+        t0 = time.perf_counter()
+        rt_artifact, rt_artifact_launches = phase_artifact_realtime(workdir)
+        say(f"phase 26 realtime artifact: {time.perf_counter() - t0:.2f} s")
+
+        t0 = time.perf_counter()
+        server = phase_server(workdir)
+        cli, cli_launches = phase_cli(workdir)
+        say(f"phase 27 server and CLI: {time.perf_counter() - t0:.2f} s")
+
     per_path = {"c1_serve": launches, "c1_train": train_launches, "c2_serve": launches_c2,
                 **train_c2_launches, "long_form": long_launches, **serve_c6_launches,
                 **train_c6_launches, "c7_realtime": realtime_launches, **c7_launches,
                 **c3_launches, **c4_launches, **count_launches, **enh_launches,
-                **count_train_launches, **corrupt_launches}
+                **count_train_launches, **corrupt_launches, "c1_artifact": artifact_launches,
+                "c7_realtime_artifact": rt_artifact_launches, "cli": cli_launches}
     record = []
     other = {"framed_matmul": "decode_ola", "decode_ola": "framed_matmul"}
     for name, (source, replaces, design) in KERNELS.items():
@@ -2667,7 +3177,10 @@ def main() -> None:
                     "c7_realtime": realtime, "c7": c7, "c3": c3,
                     "c4": c4, "count": count, "enh": enh, "c6_dprnn": dual["dprnn"],
                     "c6_dpt": dual["dpt"], "c1_count_training": count_train,
-                    "c6_corrupt_training": corrupt, "evaluation": evaluation, "card": card,
+                    "c6_corrupt_training": corrupt, "evaluation": evaluation,
+                    "c1_artifact": artifact, "int8_artifact": int8,
+                    "realtime_artifact": rt_artifact, "server": server, "cli": cli,
+                    "card": card,
                     "total_s": time.perf_counter() - t_start}))
     say(card)
     say(json.dumps({"kernels": record}))

@@ -76,3 +76,20 @@ def test_fit_launches_count_the_quality_summary():
     quality = dataclasses.replace(r, train=dataclasses.replace(r.train, valid_quality=True))
     assert chip_smoke._fit_launches(quality, 200) == (
         step, {"framed_matmul": want["framed_matmul"] + 4, "decode_ola": 8})
+
+
+def test_rows_against_live_name_the_seeding_tie_and_refuse_the_rest():
+    """Phase 24's per-row check: a row far from the live path passes only
+    where its embeddings agree (k-means' seeding tie, ROADMAP C.2)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    live = rng.standard_normal((3, 2, 400)).astype(np.float32)
+    got = live.copy()
+    got[1] = live[1, ::-1] + rng.standard_normal((2, 400)).astype(np.float32)
+    emb_err = np.zeros(3)
+    rows = chip_smoke._rows_against_live("rows", got, live, emb_err)
+    assert rows["rows_below"] == [1] and rows["min_db"] < chip_smoke.AGREE_MIN_DB
+    emb_err[1] = 10 * chip_smoke.EMBED_TOL
+    with pytest.raises(AssertionError, match=r"rows \[1\] differ"):
+        chip_smoke._rows_against_live("rows", got, live, emb_err)

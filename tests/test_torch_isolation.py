@@ -34,6 +34,9 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import amss_tpu_torch.models.dprnn, amss_tpu_torch.models.dptransformer\n"
         "import amss_tpu_torch.infer.evaluate, amss_tpu_torch.ops.bss_eval\n"
         "import amss_tpu_torch.ops.stoi, amss_tpu_torch.data.resample, amss_tpu_torch.data.store\n"
+        "import amss_tpu_torch.cli, amss_tpu_torch.__main__, amss_tpu_torch.infer.export\n"
+        "import amss_tpu_torch.infer.server, amss_tpu_torch.infer.quantize, amss_tpu_torch.ckpt.tree\n"
+        "import amss_tpu_torch.utils.profiling, amss_tpu_torch.utils.debug\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(BANNED)!r})\n"
         "print(','.join(bad))\n"
     )
@@ -42,6 +45,24 @@ def test_import_leaves_jax_and_the_jax_package_out():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "", f"port imported {out.stdout.strip()}"
+
+
+def test_artifact_loader_imports_no_model_module():
+    """Loading and serving an artifact needs no model code: the import
+    closure of the loader and the server holds no ``amss_tpu_torch.models``
+    module (nor ``weights``, which imports them)."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(REPO)!r})\n"
+        "import amss_tpu_torch.infer.export, amss_tpu_torch.infer.server\n"
+        "bad = sorted(m for m in sys.modules if m.startswith(('amss_tpu_torch.models',\n"
+        "             'amss_tpu_torch.weights', 'amss_tpu_torch.train')))\n"
+        "print(','.join(bad))\n"
+    )
+    out = subprocess.run([sys.executable, "-I", "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", f"the loader imported {out.stdout.strip()}"
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(REPO)))
