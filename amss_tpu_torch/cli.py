@@ -37,7 +37,8 @@ def _add_train_overrides(p: argparse.ArgumentParser):
     p.add_argument("--data-axis", type=int,
                    help="cards on the data axis (more than 1 is ROADMAP item 23)")
     p.add_argument("--device-data", action="store_const", const=True, default=None,
-                   help="a corpus resident on the card (ROADMAP A.12, not ported)")
+                   help="upload the corpus to the card once and send each step a plan "
+                        "(speaker ids, starts, gains) that the card gathers")
     p.add_argument("--accum-steps", type=int,
                    help="gradient accumulation microbatches per step")
     p.add_argument("--steps-per-call", type=int,

@@ -5,8 +5,10 @@ The host only gathers per-speaker source chunks; the mixture is summed on the
 device inside the train step.  Batch ``step`` of a split is a pure function of
 (seed, split, step, host), drawn through ``np.random.SeedSequence([seed,
 split, step, host])``, so a run resumes exactly by replaying its step counter
-and the port draws the same batches as the JAX package.  The chunk fill is the
-numpy one, bit for bit the JAX package's native fill.
+and the port draws the same batches as the JAX package.  The chunks are
+gathered and gain-scaled by the native fill (``data/native.py``), bit for bit
+the numpy loop and the JAX package's fill.  A device-resident corpus
+(``data/device_corpus.py``) takes the ``plan`` alone.
 """
 
 from __future__ import annotations
@@ -15,24 +17,10 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from amss_tpu_torch.data.native import batch_fill
 from amss_tpu_torch.data.store import SpeakerStore
 
 _SPLITS = ("train", "valid", "test")
-
-
-def _chunk_wrap(wave: np.ndarray, start: int, t: int) -> np.ndarray:
-    """Chunk of length t from ``wave`` starting at ``start``, wrapping to the
-    shard head if short."""
-    if start + t <= len(wave):
-        return np.asarray(wave[start : start + t], np.float32)
-    out = np.empty(t, np.float32)
-    pos, filled = start, 0
-    while filled < t:
-        take = min(len(wave) - pos, t - filled)
-        out[filled : filled + take] = wave[pos : pos + take]
-        filled += take
-        pos = 0
-    return out
 
 
 @dataclass
@@ -95,13 +83,12 @@ class Mixer:
     def batch(self, split: str, step: int, batch_size: int, host: int = 0) -> Batch:
         """Deterministic batch: a pure function of (seed, split, step, host)."""
         plan = self.plan(split, step, batch_size, host=host)
-        ids = plan.speaker_ids.ravel()
-        starts = plan.starts.astype(np.int64).ravel()
-        gains = plan.gains.ravel()
-        shards = {i: self.store.waveform(self.store.speakers[i]) for i in set(ids.tolist())}
+        # the shards of the speakers drawn (a lazy store synthesises no other)
+        used, local = np.unique(plan.speaker_ids.ravel(), return_inverse=True)
+        shards = [np.ascontiguousarray(self.store.waveform(self.store.speakers[i]), np.float32)
+                  for i in used.tolist()]
         flat = np.empty((batch_size * self.s, self.t), np.float32)
-        for k in range(batch_size * self.s):
-            flat[k] = gains[k] * _chunk_wrap(shards[int(ids[k])], int(starts[k]), self.t)
+        batch_fill(flat, shards, local, plan.starts.ravel(), plan.gains.ravel())
         return Batch(sources=flat.reshape(batch_size, self.s, self.t),
                      speaker_ids=plan.speaker_ids, gains=plan.gains)
 

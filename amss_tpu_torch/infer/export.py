@@ -178,6 +178,22 @@ def _meta_common(kind: str, model, platforms, sample_rate: int, recipe_dict, q_m
             "front": dataclasses.asdict(model.cfg.front), "recipe": recipe_dict}
 
 
+def _refuse_bf16_blstm(model) -> None:
+    """An exported BLSTM runs the ``traced`` path, cuDNN's float32 recurrence;
+    the bf16 one is a Python loop that a program would unroll over every
+    frame of a bucket.  So a model with a BLSTM in bf16 (its trunk's, a dual
+    path's, or an enhancer's refiner, down its chain of bases) is refused."""
+    m = model
+    while m is not None:
+        sep = m.cfg.sep
+        if sep.compute_dtype == "bfloat16" and (
+                sep.trunk in ("blstm", "dprnn") or m.cfg.kind == "enhance"):
+            raise NotImplementedError(
+                f"exporting a {m.cfg.kind} model whose BLSTM runs in bfloat16 is not "
+                "ported: ROADMAP item 24b")
+        m = getattr(m, "base", None)
+
+
 def export_serving(
     model,
     out_dir: str,
@@ -197,6 +213,7 @@ def export_serving(
     the ``StreamingSeparator`` contract.  ``quantize="int8"`` stores the
     parameters int8-compressed (about 4x smaller); the programs are the same
     and the loader dequantizes."""
+    _refuse_bf16_blstm(model)
     kw = separate_kwargs or {}
     tree = _model_tree(model)
     front = model.cfg.front

@@ -2,15 +2,15 @@
 the front, the normalised trunk, the training targets, and mask application.
 
 The port has the JAX package's four trunks, each after the global
-(instance), per-channel or cumulative (causal) feature norm: the BLSTM and
-the dual-path RNN (float32), the TCN and the dual-path transformer (float32,
-or bf16 operands in their products, ``compute_dtype="bfloat16"``).  Every
-head takes every trunk.  Training-time dropout (``sep.dropout``) and the
+(instance), per-channel or cumulative (causal) feature norm: the BLSTM, the
+dual-path RNN, the TCN and the dual-path transformer, each in float32 or with
+bf16 operands in its products (``compute_dtype="bfloat16"``; the BLSTM's
+recurrence then runs ``models/blstm.py::BLSTM.loop_bf16``).  Every head takes
+every trunk.  Training-time dropout (``sep.dropout``) and the
 train-time corruptions (``train_reverb_rt60``, ``train_noise_snr_db``,
 ``train_min_speakers``; ``models/front.py``) draw from a ``DropoutKey``
 (``models/dprnn.py``), which the ``Trainer`` passes as ``rng``; without one
-the loss is the clean one, as the JAX package's is without a key.  The BLSTM
-in bfloat16 raises.
+the loss is the clean one, as the JAX package's is without a key.
 """
 
 from __future__ import annotations
@@ -50,10 +50,6 @@ class SeparatorBase(nn.Module):
             raise ValueError(f"unknown trunk {sep.trunk!r}")
         if sep.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown compute_dtype {sep.compute_dtype!r}")
-        if sep.trunk in ("blstm", "dprnn") and sep.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"the {sep.trunk} trunk's BLSTM in {sep.compute_dtype} is not ported; "
-                "the port runs it in float32")
         self.cfg = cfg
         self.front = make_front(cfg.front)
         f = cfg.front.feature_dim
@@ -106,7 +102,8 @@ class SeparatorBase(nn.Module):
         if sep.trunk == "dpt":
             return dpt_stack(self.dpt, h, mask=frame_mask, chunk_frames=sep.chunk_frames,
                              heads=sep.heads, **common)
-        return self.blstm(h, frame_mask, dropout_rate=sep.dropout, rng=rng)
+        return self.blstm(h, frame_mask, dropout_rate=sep.dropout, rng=rng,
+                          compute_dtype=self.compute_dtype)
 
     def observed_mix(self, sources: torch.Tensor, rng: DropoutKey | None = None) -> torch.Tensor:
         """The mixture the model observes, from the sources [B, S, T]: with a

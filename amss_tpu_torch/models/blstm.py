@@ -24,6 +24,17 @@ With a dropout key and a rate, dropout follows every layer, the last one
 included, as in the JAX package's ``blstm_stack``; cuDNN then runs one layer
 at a time, copying that layer's weights out of the flat buffer each call.
 
+In bfloat16 (``compute_dtype``) every call, on either device, runs
+``loop_bf16``, the JAX package's ``_bilstm_fused_scan(compute_dtype=bf16)``:
+both directions in one loop, each step one batched ``[2, B, H] x [2, H, 4H]``
+product; x, h and the weights rounded to bf16, the products summed in
+float32, the bias, gates, cell state c, h and the mask's freeze in float32.
+Its products are ``_Bf16Bmm``, whose gradients are rounded to bf16 as JAX's
+are, the weights' cast made once outside the loop, so that a weight's
+gradient sums over the steps in bf16, as JAX's scan sums it.  It takes any
+mask.  cuDNN's own bf16 LSTM keeps h in bf16 and is not that function.  An
+exported program has no bf16 path (ROADMAP item 24b).
+
 ``dense`` is the JAX package's ``dense`` (``blstm.py:43-46``) over an
 ``nn.Linear`` holding ``weight = wᵀ``, in float32 or bfloat16.
 """
@@ -80,12 +91,20 @@ class BLSTM(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
                 lengths: torch.Tensor | None = None, dropout_rate: float = 0.0,
-                rng=None) -> torch.Tensor:
+                rng=None, compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """x ``[B, T, In]``, mask ``[B, T]`` (1 = valid) -> ``[B, T, 2H]``.
 
         ``lengths`` (int64 on the host) are the mask's prefix lengths, where
         the caller has them: the packed path then copies nothing to the host.
-        ``rng`` (a ``models/dprnn.py::DropoutKey``) turns dropout on."""
+        ``rng`` (a ``models/dprnn.py::DropoutKey``) turns dropout on.
+        ``compute_dtype`` bfloat16 runs ``loop_bf16`` on any device."""
+        if compute_dtype == torch.bfloat16:
+            if torch.compiler.is_exporting():
+                raise NotImplementedError(
+                    "exporting a BLSTM in bfloat16 is not ported: ROADMAP item 24b")
+            return self.loop_bf16(x, mask, dropout_rate, rng)
+        if compute_dtype != torch.float32:
+            raise ValueError(f"compute dtype {compute_dtype} is neither float32 nor bfloat16")
         if torch.compiler.is_exporting():
             if rng is not None and dropout_rate > 0.0:
                 raise NotImplementedError("an exported BLSTM runs without dropout")
@@ -150,6 +169,54 @@ class BLSTM(nn.Module):
         h = x
         for layer in range(self.layers):
             h = self._layer_loop(h, mask, layer)
+        return h
+
+    def _layer_bf16(self, x: torch.Tensor, mask: torch.Tensor | None, layer: int) -> torch.Tensor:
+        """One layer, both directions in one loop (direction a leading batch
+        axis), bf16 products into float32 (``_bilstm_fused_scan``)."""
+        b, t, _ = x.shape
+        hd = self.hidden
+        fwd, bwd = self._weights(layer, False), self._weights(layer, True)
+        # the casts happen once, outside the loop, as in the JAX package
+        wx = torch.stack([fwd[0].T, bwd[0].T]).to(torch.bfloat16)  # [2, In, 4H]
+        wh = torch.stack([fwd[1].T, bwd[1].T]).to(torch.bfloat16)  # [2, H, 4H]
+        bias = torch.stack([fwd[2], bwd[2]])[:, None, :]  # [2, 1, 4H]
+        xd = torch.stack([x, torch.flip(x, dims=(1,))]).to(torch.bfloat16)  # [2, B, T, In]
+        xproj = (_Bf16Bmm.apply(xd.reshape(2, b * t, -1), wx)
+                 + bias).reshape(2, b, t, 4 * hd)  # the input projection, hoisted
+        valid = None
+        if mask is not None:
+            valid = torch.stack([mask, torch.flip(mask, dims=(1,))])[..., None] > 0  # [2, B, T, 1]
+        h = x.new_zeros((2, b, hd), dtype=torch.float32)
+        c = torch.zeros_like(h)
+        outs = []
+        for s in range(t):
+            gates = xproj[:, :, s] + _Bf16Bmm.apply(h.to(torch.bfloat16), wh)
+            sig = torch.sigmoid(gates)  # i, f and o (the g quarter unused)
+            g = torch.tanh(gates[..., 2 * hd : 3 * hd])
+            c_new = sig[..., hd : 2 * hd] * c + sig[..., :hd] * g
+            h_new = sig[..., 3 * hd :] * torch.tanh(c_new)
+            if valid is None:
+                h, c = h_new, c_new
+                outs.append(h_new)
+            else:
+                m = valid[:, :, s]
+                c = torch.where(m, c_new, c)
+                h = torch.where(m, h_new, h)
+                outs.append(torch.where(m, h_new, torch.zeros_like(h_new)))
+        out = torch.stack(outs, dim=2)  # [2, B, T, H]
+        return torch.cat([out[0], torch.flip(out[1], dims=(1,))], dim=-1)
+
+    def loop_bf16(self, x: torch.Tensor, mask: torch.Tensor | None = None,
+                  dropout_rate: float = 0.0, rng=None) -> torch.Tensor:
+        """Every layer through ``_layer_bf16``, dropout after each with a
+        key."""
+        from amss_tpu_torch.models.dprnn import dropout
+
+        keys = [None] * self.layers if rng is None else rng.split(self.layers)
+        h = x
+        for layer, r in enumerate(keys):
+            h = dropout(self._layer_bf16(h, mask, layer), dropout_rate, r)
         return h
 
     def _one_way(self, x: torch.Tensor, layer: int, reverse: bool) -> torch.Tensor:
@@ -252,6 +319,37 @@ def _bf16_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cuda" and BF16_PRODUCT == "cublas_bf16_out_float32":
         return torch.mm(a, b, out_dtype=torch.float32)
     return a.float() @ b.float()
+
+
+def _bf16_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of two 3-D bf16 tensors, batch by batch, summed and returned
+    in float32, as ``_bf16_mm``."""
+    if a.device.type == "cuda" and hasattr(torch.ops.aten.bmm, "dtype"):
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+class _Bf16Bmm(torch.autograd.Function):
+    """``a @ b`` of two bf16 tensors ``[D, M, K] x [D, K, N]`` into float32.
+    The backward is JAX's transpose of that product: each operand's gradient
+    is the float32 product of the float32 cotangent with the other bf16
+    operand, rounded to bf16 (the operand's own type), so that the gradients
+    of one operand used at many steps add up in bf16."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _bf16_bmm(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = torch.bmm(g, b.float().transpose(1, 2)).to(torch.bfloat16)
+        if ctx.needs_input_grad[1]:
+            db = torch.bmm(a.float().transpose(1, 2), g).to(torch.bfloat16)
+        return da, db
 
 
 class _Bf16Dense(torch.autograd.Function):

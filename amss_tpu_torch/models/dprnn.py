@@ -14,6 +14,8 @@ For a prefix frame mask every intra row and every inter row is again a prefix
 derived on the host once per trunk call (``path_lengths``): from the shapes
 alone when the mask only marks the padding to ``P·K`` (training), else from
 one copy of the mask to the host.  The BLSTM then copies nothing itself.
+In bfloat16 the BLSTMs run their loop (``BLSTM.loop_bf16``), which needs no
+lengths, and each path's ``dense`` takes bf16 operands.
 
 Dropout: the JAX package's ``where(bernoulli(keep), x / keep, 0)``, the
 identity without a key or at rate 0.  A key (``DropoutKey``) is an integer
@@ -187,7 +189,7 @@ def pad_to_chunks(h: torch.Tensor, mask: torch.Tensor | None, k: int):
 
 def _path(path: DualPathPath, x, mask, lengths, compute_dtype, rate, rng):
     """BLSTM -> proj -> layer norm -> dropout; x ``[N, L, D]`` -> ``[N, L, D]``."""
-    h = path.lstm(x, mask, lengths=lengths)
+    h = path.lstm(x, mask, lengths=lengths, compute_dtype=compute_dtype)
     h = dense(path.proj, h, compute_dtype)
     return dropout(layer_norm(path.ln, h), rate, rng)
 
@@ -224,8 +226,10 @@ def dprnn_stack(
     h = dense(dprnn.in_proj, x, compute_dtype)
     d = h.shape[-1]
     # the BLSTM's lengths on the host, needed only where cuDNN packs (not in
-    # an exported program, whose BLSTM is the traced one)
-    packs = x.device.type == "cuda" and not torch.compiler.is_exporting()
+    # an exported program, whose BLSTM is the traced one, nor in bf16, whose
+    # BLSTM is the loop)
+    packs = (x.device.type == "cuda" and not torch.compiler.is_exporting()
+             and compute_dtype == torch.float32)
     lengths = path_lengths(t, k, mask, b) if packs else None
     h, m_g = pad_to_chunks(h, mask, k)
     for bp, r in zip(dprnn.blocks, split_key(rng, len(dprnn.blocks))):

@@ -40,10 +40,6 @@ class EnhancerModel(nn.Module):
         super().__init__()
         if cfg.kind != "enhance":
             raise ValueError(f"EnhancerModel needs kind 'enhance', got {cfg.kind!r}")
-        if cfg.sep.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"the refiner's BLSTM in {cfg.sep.compute_dtype} is not ported; the port "
-                "runs it in float32")
         if cfg.front != base.cfg.front:
             warnings.warn(
                 f"enhance recipe front ({cfg.front.kind}, feature_dim={cfg.front.feature_dim}) "
@@ -64,6 +60,12 @@ class EnhancerModel(nn.Module):
     @property
     def base(self) -> nn.Module:
         return self._frozen[0]
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """The refiner's: its BLSTM and its projection run in it; the base
+        runs in its own."""
+        return torch.bfloat16 if self.cfg.sep.compute_dtype == "bfloat16" else torch.float32
 
     @property
     def front(self) -> nn.Module:
@@ -94,8 +96,8 @@ class EnhancerModel(nn.Module):
         fm = None
         if frame_mask is not None:
             fm = frame_mask[:, None].expand(b, s, t).reshape(b * s, t)
-        h = self.blstm(instance_norm(pairs, fm), fm)
-        delta = torch.movedim(dense(self.proj, h).reshape(b, s, t, f), 1, -1)
+        h = self.blstm(instance_norm(pairs, fm), fm, compute_dtype=self.compute_dtype)
+        delta = torch.movedim(dense(self.proj, h, self.compute_dtype).reshape(b, s, t, f), 1, -1)
         base_logits = torch.log(torch.movedim(est_codes, 1, -1) + _EPS)
         return torch.softmax(base_logits + delta, dim=-1)
 

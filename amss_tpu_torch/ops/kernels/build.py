@@ -7,6 +7,10 @@ repository root, keyed by a hash of the sources (``*.cu`` and the ``*.cuh``
 they include) and flags, and is built at first use, with the compiler's
 report (``-Xptxas=-v``: registers and spills) kept beside it as ``nvcc.log``.
 Every C entry point returns ``cudaGetLastError()`` after its launch.
+
+``build_native`` compiles the host batch fill (``csrc/amss_data.cc``) with
+``g++`` into ``build/amss_tpu_torch/native-<hash>/``, apart from the ``nvcc``
+build, so that a machine without a card builds it too.
 """
 
 from __future__ import annotations
@@ -89,6 +93,37 @@ def build(src: Path = CSRC) -> tuple[Path, float, str]:
     log_path.write_text(log)
     os.replace(tmp, lib)
     return lib, seconds, log
+
+
+NATIVE_SRC = CSRC / "amss_data.cc"
+NATIVE_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC"]
+
+
+def build_native(src: Path = NATIVE_SRC) -> tuple[Path, float]:
+    """Compile the host library ``src`` with ``g++`` unless this source hash
+    is built already; returns (library path, seconds spent compiling).  A
+    missing compiler or a failed build raises with the compiler's output."""
+    src = Path(src)
+    h = hashlib.sha256(" ".join(NATIVE_FLAGS).encode())
+    h.update(src.read_bytes())
+    out_dir = BUILD_ROOT / f"native-{h.hexdigest()[:16]}"
+    lib = out_dir / f"lib{src.stem}.so"
+    if lib.exists():
+        return lib, 0.0
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found on PATH; {src.name} is built with it at first use")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"lib{src.stem}.{os.getpid()}.so"
+    cmd = [gxx, *NATIVE_FLAGS, str(src), "-o", str(tmp)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib, seconds
 
 
 def open_library(path: Path) -> ctypes.CDLL:

@@ -637,7 +637,7 @@ def dual_path_stage_times(model, batch: int, seconds: int, reps: int) -> dict:
     cols = hg.transpose(1, 2).reshape(b * k, p, d)
     mt = m_g.transpose(1, 2).reshape(b * k, p)
     if sep.trunk == "dprnn":
-        part("intra_blstm", lambda: bp.intra.lstm(rows, mi, lengths=lengths[0]))
+        part("intra_blstm", lambda: bp.intra.lstm(rows, mi, lengths=lengths[0], compute_dtype=cd))
         part("intra_path", lambda: dprnn._path(bp.intra, rows, mi, lengths[0], cd, 0.0, None))
         part("inter_path", lambda: dprnn._path(bp.inter, cols, mt, lengths[1], cd, 0.0, None))
         part("block", lambda: dprnn._block(bp, hg, m_g, lengths, cd, 0.0, None))

@@ -15,7 +15,11 @@ encodes the mixture alone and scores the separated waveforms; any trunk,
 the dual-path ones included), and enh (the refiner over the frozen separator
 of ``base_run``, whose trainable tree is ``{"separator": {"blstm",
 "proj"}}``).  The host draws batches on a background thread
-(``data/prefetch.py``) and ships the sources as int16.  Training-time
+(``data/prefetch.py``) and ships the sources as int16.  With
+``train.device_data`` the corpus is uploaded to the device once
+(``data/device_corpus.py``) and the host ships plans (speaker ids, starts,
+gains) that the step gathers on the device before its loss; validation takes
+plans too, the image and quality summaries host batches.  Training-time
 dropout draws from a ``DropoutKey`` that the Trainer folds from
 ``train.seed``, the step and the microbatch, as the JAX package folds its key:
 a seed gives the same masks on a device, and a resumed run draws what an
@@ -49,7 +53,8 @@ import numpy as np
 import torch
 
 from amss_tpu_torch.ckpt.checkpoint import AsyncCheckpointer, restore_checkpoint, restore_subtree
-from amss_tpu_torch.data.mixer import Mixer
+from amss_tpu_torch.data.device_corpus import DeviceCorpus
+from amss_tpu_torch.data.mixer import Mixer, Plan
 from amss_tpu_torch.data.prefetch import Prefetcher
 from amss_tpu_torch.models.adapt import AdaptAutoencoder
 from amss_tpu_torch.models.chimera import ChimeraModel
@@ -100,10 +105,6 @@ class Trainer:
     def __init__(self, recipe: RecipeConfig, store, workdir: str = "runs",
                  run_dir: str | None = None, device=None):
         t = recipe.train
-        if t.device_data:
-            raise NotImplementedError(
-                "train.device_data (DeviceCorpus, a corpus resident on the card) is not "
-                "ported yet: ROADMAP A.12")
         if t.data_axis != 1:
             raise NotImplementedError(
                 f"train.data_axis={t.data_axis}: multi-GPU data parallel is ROADMAP item 23")
@@ -121,6 +122,9 @@ class Trainer:
         self.model = make_model(recipe.model, recipe.base_run, self.device).to(self.device)
         self.mixer = Mixer(store, nb_speakers=recipe.model.nb_speakers,
                            chunk_samples=t.chunk_samples, seed=t.seed)
+        # a corpus resident on the device: batches become plans.  An upload
+        # that fails raises; there is no fallback to host batches
+        self.corpus = DeviceCorpus(store, t.chunk_samples, self.device) if t.device_data else None
         named = [(n, p) for n, p in self.model.named_parameters() if p.requires_grad]
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
@@ -224,18 +228,29 @@ class Trainer:
         return state
 
     # -- data --------------------------------------------------------------
+    def _draw(self, split: str, step: int, batch_size: int):
+        """The host's draw of a batch: a ``Plan`` with a device corpus, else
+        the audio."""
+        if self.corpus is not None:
+            return self.mixer.plan(split, step, batch_size)
+        return self.mixer.batch(split, step, batch_size)
+
     @staticmethod
     def _host_arrays(batch) -> dict:
-        """A host batch in the int16 wire format."""
+        """A plan as its three arrays (a few hundred bytes), or a host batch
+        in the int16 wire format."""
+        if isinstance(batch, Plan):
+            return {"plan_ids": batch.speaker_ids, "plan_starts": batch.starts,
+                    "plan_gains": batch.gains}
         q = np.clip(batch.sources * 32767.0, -32767.0, 32767.0).astype(np.int16)
         return {"sources_q": q}
 
     def _device_batch(self, batch) -> dict:
-        """A host batch on the device: int16 through pinned memory, copied
-        without waiting on a card; an L41 batch also carries its speakers'
-        global ids [B, S]."""
+        """A plan or a host batch on the device, through pinned memory,
+        copied without waiting on a card; an L41 host batch also carries its
+        speakers' global ids [B, S]."""
         arrays = self._host_arrays(batch)
-        if self.recipe.model.kind == "l41":
+        if self.recipe.model.kind == "l41" and not isinstance(batch, Plan):
             arrays["speaker_ids"] = batch.speaker_ids
         out = {}
         for k, v in arrays.items():
@@ -253,6 +268,16 @@ class Trainer:
         if "sources_q" in out:
             out["sources"] = out.pop("sources_q").to(torch.float32) * (1.0 / 32767.0)
         return out
+
+    def prep(self, batch: dict) -> dict:
+        """A device batch as the loss takes it: a plan gathered from the
+        device corpus (the speakers' ids ride along, as L41 needs them), or
+        the int16 wire format dequantized."""
+        if "plan_ids" not in batch:
+            return self._dequantize(batch)
+        sources = self.corpus.gather(batch["plan_ids"], batch["plan_starts"],
+                                     batch["plan_gains"])
+        return {"sources": sources, "speaker_ids": batch["plan_ids"]}
 
     def _check_corpus_collision(self, store) -> None:
         """Refuse a run dir that was trained on another corpus: the run id
@@ -291,7 +316,7 @@ class Trainer:
         t = self.recipe.train
         key = self.dropout_key(self.step)
         accum = max(t.accum_steps, 1)
-        full = self._dequantize(batch)
+        full = self.prep(batch)
         mb_size = full["sources"].shape[0] // accum
         self.model.train()
         for p in self.params:
@@ -329,7 +354,7 @@ class Trainer:
         self.load_state(self.init_state() if state is None else state)
         start = self.step
         batches = Prefetcher(
-            make_batch=lambda s: self.mixer.batch("train", s, r.batch_size),
+            make_batch=lambda s: self._draw("train", s, r.batch_size),
             put_batch=self._device_batch, start_step=start, end_step=r.steps)
         best_v, stale = float("inf"), 0
         t0 = time.time()
@@ -397,8 +422,7 @@ class Trainer:
         losses = []
         with self._serving_weights():
             for i in range(r.valid_steps):
-                batch = self._dequantize(
-                    self._device_batch(self.mixer.batch(split, offset + i, r.batch_size)))
+                batch = self.prep(self._device_batch(self._draw(split, offset + i, r.batch_size)))
                 loss, _ = self.model.loss_from_batch(batch)
                 losses.append(float(loss))
         return float(np.mean(losses))

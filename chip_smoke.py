@@ -143,7 +143,25 @@ Phases, each printing its wall seconds:
    artifact call, request latency; then make-synthetic, train
    (CLI_TRAIN_STEPS c1 steps at full width), evaluate, separate, export,
    separate-exported and profile through ``amss_tpu_torch.cli.main`` on the
-   card, the profile's trace holding the card's kernels.
+   card, the profile's trace holding the card's kernels;
+28. the native batch fill: ``csrc/amss_data.cc`` built with g++, bit for bit
+   the numpy loop and ``Mixer.batch`` at c6_flagship's batch (16 x 2 x 16384)
+   on phase 5's corpus, the host ms of each;
+29. a corpus resident on the card at training scale (100 speakers x 120 s,
+   192 MB as int16; cut to what DC_BUILD_BUDGET_S writes): the bytes
+   resident, the upload's time, ``gather`` against ``Mixer.batch`` within one
+   LSB times the gain on the first steps' plans, and a gather's device time;
+30. ``checkpoints/c6_flagship/config.json`` through ``Trainer.fit`` with
+   that corpus on the card (device data, bf16 TCN, batch 16 x 16384, EMA),
+   cut to C6F_STEPS steps: the first step's loss on device data against host
+   data on one plan, one step with no host sync, the valid loss falling, the
+   checkpoint reloading, and ms a step of device against host data in turns;
+31. c1 at full width in bf16 with device data: the first step card against
+   CPU, C1_BF16_STEPS steps of fit launching B1 and B2 as often as float32 c1
+   does, ms a step against float32; ``checkpoints/c1_dpcl`` served in bf16,
+   its RTF beside phase 3's and its quality gated (C1_BF16_QUALITY_MIN_DB);
+32. one bf16 step of c6 with the DPRNN trunk and of the enh refiner, card
+   against CPU; exporting a bf16 c1 raises (ROADMAP item 24b).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero,
@@ -170,7 +188,7 @@ import torch.nn.functional as F
 REPO = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(REPO, "checkpoints", "c1_dpcl")
 C2_CKPT = os.path.join(REPO, "checkpoints", "c2_adapt")
-TIME_LIMIT_S = 900  # the whole run; a hang ends with a traceback and exit 1
+TIME_LIMIT_S = 1150  # the whole run; a hang ends with a traceback and exit 1
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA data sheet): dense TF32 on
 # the tensor cores, FP32 on the CUDA cores, and HBM3 bandwidth.  Both kernels
@@ -382,6 +400,59 @@ RIR_DRR_TOL_DB = 0.2
 EVAL_SDRI_MIN_DB = 6.48
 EVAL_STOI_I_MIN = 0.076
 EVAL_SI_SDRI_TOL_DB = 1e-3
+
+# phase 28: the native batch fill (csrc/amss_data.cc, built with g++) against
+# the numpy loop (data/native.py::batch_fill_ref), bit for bit, at
+# c6_flagship's batch (16 x 2 x 16384) on phase 5's corpus, FILL_ROUNDS plans
+FILL_BATCH = 16
+FILL_CHUNK = 16384
+FILL_ROUNDS = 10
+# phase 29: a corpus resident on the card at the size that
+# amss_tpu/data/device_corpus.py:4-9 calls training scale, 100 speakers x
+# 120 s at 8 kHz (192 MB as int16), synthetic v1 from seed 0, written in at
+# most DC_BUILD_BUDGET_S and cut to the speakers written by then.  ``gather``
+# against ``Mixer.batch`` on the plans of steps 0 to DC_CHECK_STEPS - 1 within
+# one LSB times the gain (tests/test_device_corpus.py's bound: the device
+# path rounds the unscaled waveform to int16, the host's wire format
+# truncates gain x chunk)
+DC_SPEAKERS = 100
+DC_SECONDS = 120.0
+DC_BUILD_BUDGET_S = 60.0
+DC_CHECK_STEPS = 4
+# phase 30: checkpoints/c6_flagship/config.json (device data, the bf16 TCN,
+# batch 16 x 16384, EMA 0.999, steps_per_call 20) cut to C6F_STEPS of its
+# 96000 steps, validating every C6F_VALID_EVERY (9600), on phase 29's corpus.
+# Its first step's loss on device data against host data on one plan within
+# DEVICE_HOST_LOSS_TOL (tests/test_device_corpus.py's bound); then ms per
+# step of each in turns of SPEED_TURN_STEPS steps (device, host, host, device)
+C6F_STEPS = 200
+C6F_VALID_EVERY = 100
+DEVICE_HOST_LOSS_TOL = 1e-3
+SPEED_TURN_STEPS = 10
+# phase 31: the c1 recipe at full width (2x300 BLSTM, batch 8 x 16384) in
+# bf16 with device data, C1_BF16_STEPS steps of fit on phase 29's corpus; its
+# first step on the card against the CPU: the loss relative to the CPU's, the
+# gradients' distance over all tensors and each tensor's, relative to the
+# CPU's norms (loss, all, each).  A sum order flips roundings to bf16, of h in
+# the forward and of the gradients in the backward: the port and the JAX
+# package (two float32 sum orders of the same bf16 products, on the CPU) put
+# the full-width c1 step 2.2e-7, 1.0e-3 and 2.2e-3 apart, and the card and
+# the CPU 1.9e-6, 1.06e-3 and 2.18e-3 (enh's refiner 4.9e-6, 4.2e-4, 1.8e-3;
+# this phase on an H100 80GB HBM3 at 700 W).  The bounds are phase 5's loss
+# bound and ten times the gradients' distances
+C1_BF16_STEPS = 20
+C1_BF16_TOLS = (1e-4, 1e-2, 2e-2)
+# checkpoints/c1_dpcl served in bf16: the JAX package scores 6.377 dB [5.242,
+# 7.500] on phase 4's protocol in bf16 on the CPU (python
+# tests/test_torch_blstm_bf16.py); the gate sits at the lower end of that
+# 95% interval
+C1_BF16_QUALITY_MIN_DB = 5.24
+# phase 32: one bf16 step of c6 with the DPRNN trunk and of the enh refiner,
+# card against CPU, as phase 31's.  The DPRNN c6 step was 6.95e-5, 4.66e-3
+# and 7.68e-3 apart (this phase on the same card): six blocks of bf16 roundings
+# behind the adaptive front, whose log of near-silent codes magnifies
+# rounding (ROADMAP C.11); its bounds are about ten times those
+DP_BF16_TOLS = (1e-3, 5e-2, 0.1)
 
 # name -> (source, the TPU kernel it replaces, its design)
 KERNELS = {
@@ -933,19 +1004,11 @@ def cancelled_gradients(model) -> set:
     return {n for n, _ in model.named_parameters() if n.endswith(".attn.wk.bias")}
 
 
-def first_step_matches_cpu(tr, state0: dict, batch0, grad_tol: float = STEP_GRAD_TOL,
-                           prepare=None, key=None) -> dict:
-    """The card's first step against the same step on the CPU through the
-    port's plain path (plain kernels, the BLSTM as a loop), from the same init
-    and batch: the loss, each term of it, and every gradient.  Both sides get
-    ``key``; by default neither has one, so dropout and the corruptions are
-    off.  A key may only reach host draws (dropped sources), which the card
-    and the CPU draw alike.  ``prepare(model, device)`` runs on each model
-    before its step.
-
-    The autoencoder's loss, -SI-SDR + 10 L2, nearly cancels at init (about
-    0.007 from terms of about 1.2), so it is held relative to the size of its
-    terms, |neg_si_sdr| + 10 l2; each term is held relative to itself."""
+def card_and_cpu_step(tr, state0: dict, batch0, prepare=None, key=None) -> tuple:
+    """The loss, its terms and every gradient of one step from ``state0`` on
+    ``batch0`` (a host batch), on the card (the trainer's model) and on a CPU
+    twin: ``((loss, terms, grads) card, (loss, terms, grads) CPU)``, the
+    gradients on the host (None where the loss reads no parameter)."""
     from amss_tpu_torch.train.engine import make_model
 
     def loss_and_grads(model, device):
@@ -960,7 +1023,7 @@ def first_step_matches_cpu(tr, state0: dict, batch0, grad_tol: float = STEP_GRAD
         return float(loss.detach()), {k: float(v.detach()) for k, v in metrics.items()}, grads
 
     tr.load_state(state0)
-    loss_gpu, terms_gpu, grads_gpu = loss_and_grads(tr.model, tr.device)
+    card = loss_and_grads(tr.model, tr.device)
     for p in tr.model.parameters():
         p.grad = None
     cpu = make_model(tr.recipe.model, tr.recipe.base_run, "cpu")
@@ -971,7 +1034,24 @@ def first_step_matches_cpu(tr, state0: dict, batch0, grad_tol: float = STEP_GRAD
     if keys.unexpected_keys or set(keys.missing_keys) - buffers:
         raise AssertionError(f"CPU twin: missing {keys.missing_keys}, "
                              f"unexpected {keys.unexpected_keys}")
-    loss_cpu, terms_cpu, grads_cpu = loss_and_grads(cpu, torch.device("cpu"))
+    return card, loss_and_grads(cpu, torch.device("cpu"))
+
+
+def first_step_matches_cpu(tr, state0: dict, batch0, grad_tol: float = STEP_GRAD_TOL,
+                           prepare=None, key=None) -> dict:
+    """The card's first step against the same step on the CPU through the
+    port's plain path (plain kernels, the BLSTM as a loop), from the same init
+    and batch: the loss, each term of it, and every gradient.  Both sides get
+    ``key``; by default neither has one, so dropout and the corruptions are
+    off.  A key may only reach host draws (dropped sources), which the card
+    and the CPU draw alike.  ``prepare(model, device)`` runs on each model
+    before its step.
+
+    The autoencoder's loss, -SI-SDR + 10 L2, nearly cancels at init (about
+    0.007 from terms of about 1.2), so it is held relative to the size of its
+    terms, |neg_si_sdr| + 10 l2; each term is held relative to itself."""
+    (loss_gpu, terms_gpu, grads_gpu), (loss_cpu, terms_cpu, grads_cpu) = card_and_cpu_step(
+        tr, state0, batch0, prepare, key)
     scale = abs(loss_cpu)
     if "neg_si_sdr" in terms_cpu:
         scale = abs(terms_cpu.pop("neg_si_sdr")) + 10.0 * abs(terms_cpu["l2"])
@@ -2895,6 +2975,394 @@ def phase_cli(workdir: str) -> tuple[dict, dict]:
                 trace_kernel_events=kernels), launches
 
 
+def phase_native_fill(store) -> dict:
+    """The native fill against the numpy loop and ``Mixer.batch``, bit for
+    bit, on FILL_ROUNDS plans of FILL_BATCH x 2 x FILL_CHUNK; host ms of
+    each."""
+    from amss_tpu_torch.data.mixer import Mixer
+    from amss_tpu_torch.data.native import batch_fill, batch_fill_ref
+    from amss_tpu_torch.ops.kernels.build import build_native
+
+    lib, build_s = build_native()
+    mixer = Mixer(store, nb_speakers=2, chunk_samples=FILL_CHUNK, seed=0)
+    shards = [store.waveform(s) for s in store.speakers]
+    ms: dict = {"native": [], "numpy": []}
+    for step in range(FILL_ROUNDS):
+        plan = mixer.plan("train", step, FILL_BATCH)
+        args = (shards, plan.speaker_ids.ravel(), plan.starts.ravel(), plan.gains.ravel())
+        outs = {}
+        for name, fill in (("native", batch_fill), ("numpy", batch_fill_ref)):
+            outs[name] = np.empty((FILL_BATCH * 2, FILL_CHUNK), np.float32)
+            t0 = time.perf_counter()
+            fill(outs[name], *args)
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+        batch = mixer.batch("train", step, FILL_BATCH).sources.reshape(outs["native"].shape)
+        if not (np.array_equal(outs["native"], outs["numpy"]) and np.array_equal(batch,
+                                                                              outs["native"])):
+            raise AssertionError(f"the native fill differs from the numpy loop at step {step}")
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    say(f"  g++ build {build_s:.2f} s ({os.path.relpath(lib, REPO)}); {FILL_ROUNDS} batches of "
+        f"{FILL_BATCH} x 2 x {FILL_CHUNK} bit for bit the numpy loop's and Mixer.batch's; host "
+        f"ms a batch (median): native {med['native']:.3f}, numpy {med['numpy']:.3f}")
+    return dict(build_s=build_s, batch=FILL_BATCH, chunk=FILL_CHUNK, rounds=FILL_ROUNDS,
+                host_ms=med, host_ms_all=ms)
+
+
+def training_scale_corpus(workdir: str):
+    """DC_SPEAKERS synthetic v1 speakers of DC_SECONDS from seed 0, the
+    corpus ``make_synthetic_corpus`` writes, synthesised on a thread pool and
+    written until DC_BUILD_BUDGET_S has passed; returns (store, facts)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from amss_tpu_torch.data.store import SpeakerStore
+    from amss_tpu_torch.data.synthetic import SyntheticStore
+
+    t0 = time.perf_counter()
+    synth = SyntheticStore(DC_SPEAKERS, DC_SECONDS, SAMPLE_RATE, seed=0, version=1)
+    store = SpeakerStore.create(os.path.join(workdir, "corpus_large"), SAMPLE_RATE)
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        futures = [pool.submit(synth.waveform, name) for name in synth.speakers]
+        for name, fut in zip(synth.speakers, futures):
+            if time.perf_counter() - t0 > DC_BUILD_BUDGET_S:
+                pool.shutdown(cancel_futures=True)
+                break
+            store.add_speaker(name, fut.result(), normalize=False)
+    store.finalize()
+    secs = time.perf_counter() - t0
+    n = len(store.speakers)
+    cut = "" if n == DC_SPEAKERS else (f" (cut from {DC_SPEAKERS}: the "
+                                       f"{DC_BUILD_BUDGET_S:g} s budget)")
+    say(f"  corpus {n} x {DC_SECONDS:g} s{cut}: {secs:.2f} s")
+    return store, dict(speakers=n, seconds=DC_SECONDS, write_s=secs, cut=n != DC_SPEAKERS)
+
+
+def phase_device_corpus(store) -> dict:
+    """The corpus uploaded once (bytes resident, seconds), ``gather`` against
+    ``Mixer.batch`` on c6_flagship's plans of the first steps, and a gather's
+    device time."""
+    from amss_tpu_torch.data.device_corpus import DeviceCorpus
+    from amss_tpu_torch.data.mixer import Mixer
+    from amss_tpu_torch.utils.timing import time_ms
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    corpus = DeviceCorpus(store, FILL_CHUNK)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated() - before
+    host = corpus.flat.cpu()  # the same bytes, uploaded again and timed alone
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = host.to("cuda")
+    torch.cuda.synchronize()
+    upload_ms = (time.perf_counter() - t0) * 1e3
+    del again, host
+    mixer = Mixer(store, nb_speakers=2, chunk_samples=FILL_CHUNK, seed=0)
+    worst = 0.0
+    for step in range(DC_CHECK_STEPS):
+        plan, hb = mixer.plan("train", step, FILL_BATCH), mixer.batch("train", step, FILL_BATCH)
+        args = [torch.from_numpy(a).cuda() for a in (plan.speaker_ids, plan.starts, plan.gains)]
+        got = corpus.gather(*args).cpu().numpy()
+        err = float(np.abs(got - hb.sources).max())
+        lsb = float(plan.gains.max()) / 32767.0 + 1e-6
+        worst = max(worst, err / lsb)
+        if not err <= lsb:
+            raise AssertionError(f"gather at step {step}: {err} from Mixer.batch > {lsb}")
+    gather_ms = time_ms(lambda: corpus.gather(*args))
+    elems = FILL_BATCH * 2 * FILL_CHUNK
+    # int16 read and float32 written once each, the plan's few hundred bytes aside
+    gather_bound_ms = elems * (2 + 4) / PEAK_HBM_BYTES * 1e3
+    say(f"  DeviceCorpus: {corpus.nbytes / 1e6:.1f} MB int16 ({len(store.speakers)} rows of "
+        f"{corpus.row}), {resident / 1e6:.1f} MB more allocated on the card; built and "
+        f"uploaded in {build_s:.3f} s, the upload alone {upload_ms:.3f} ms; gather of "
+        f"{FILL_BATCH} x 2 x {FILL_CHUNK} within {worst:.3f} LSB x gain of Mixer.batch on steps "
+        f"0-{DC_CHECK_STEPS - 1}, {gather_ms:.4f} ms on the card (bound {gather_bound_ms:.4f} "
+        f"ms, bytes)")
+    return dict(nbytes=corpus.nbytes, row=corpus.row, resident_bytes=resident,
+                build_s=build_s, upload_ms=upload_ms, gather_ms=gather_ms,
+                gather_bound_ms=gather_bound_ms, gather_worst_lsb=worst)
+
+
+def timed_steps(tr, make_batch, start: int, n: int) -> float:
+    """ms per step of ``n`` train steps from ``start``, each batch drawn by
+    ``make_batch(step)`` on ``fit``'s prefetch thread and put on the card as
+    ``fit`` puts it, between two synchronisations."""
+    from amss_tpu_torch.data.prefetch import Prefetcher
+
+    batches = Prefetcher(make_batch=make_batch, put_batch=tr._device_batch, start_step=start,
+                         end_step=start + n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        for _, batch in batches:
+            tr._train_step(batch)
+        torch.cuda.synchronize()
+    finally:
+        batches.close()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def phase_train_flagship(store, workdir: str) -> tuple[dict, dict]:
+    """c6_flagship's own config.json through Trainer.fit with its corpus on
+    the card; returns (results, launches by path)."""
+    from amss_tpu_torch.train.engine import Trainer
+    from amss_tpu_torch.utils.config import recipe_from_dict
+
+    with open(os.path.join(C6_FLAGSHIP, "config.json")) as f:
+        recipe = recipe_from_dict(json.load(f))
+    t = recipe.train
+    say(f"  checkpoints/c6_flagship/config.json: device_data {t.device_data}, "
+        f"{recipe.model.sep.compute_dtype} TCN, batch {t.batch_size} x {t.chunk_samples}, EMA "
+        f"{t.ema_decay}, steps_per_call {t.steps_per_call}; cut: steps {t.steps} -> "
+        f"{C6F_STEPS}, valid_every {t.valid_every} -> {C6F_VALID_EVERY}")
+    if not t.device_data:
+        raise AssertionError("c6_flagship's config no longer asks for device data")
+    recipe = dataclasses.replace(recipe, train=dataclasses.replace(
+        t, steps=C6F_STEPS, valid_every=C6F_VALID_EVERY))
+    t = recipe.train
+    t0 = time.perf_counter()
+    tr = Trainer(recipe, store, workdir=os.path.join(workdir, "runs"))
+    setup_s = time.perf_counter() - t0
+    say(f"  run dir {os.path.basename(tr.dir)}; Trainer with the corpus uploaded "
+        f"({tr.corpus.nbytes / 1e6:.1f} MB): {setup_s:.2f} s")
+    state0 = tr.init_state()
+    plan0 = tr._draw("train", 0, t.batch_size)
+    host0 = tr.mixer.batch("train", 0, t.batch_size)
+    tr.load_state(state0)
+    with torch.no_grad():
+        loss_dev = float(tr.model.loss_from_batch(tr.prep(tr._device_batch(plan0)))[0])
+        loss_host = float(tr.model.loss_from_batch(tr.prep(tr._device_batch(host0)))[0])
+    gap = abs(loss_dev - loss_host)
+    say(f"  first step's loss on one plan: device data {loss_dev:.6f}, host data "
+        f"{loss_host:.6f} ({gap:.2e} apart, tol {DEVICE_HOST_LOSS_TOL:g})")
+    if not gap <= DEVICE_HOST_LOSS_TOL:
+        raise AssertionError(f"device-data loss {loss_dev} against host-data {loss_host}")
+    per_step = check_train_step_needs_no_host_sync(tr, plan0)
+    k = _gate_launches(recipe.model)
+    want_step = {"framed_matmul": 2 * k["framed_matmul"], "decode_ola": k["decode_ola"]}
+    if per_step != want_step:
+        raise AssertionError(f"a flagship step launched {per_step}, want {want_step}")
+    tr.load_state(state0)
+    valid0 = tr.valid_loss()
+    final, launches, fit_s, peak = _fit_counted(tr, state0)
+    n_valid = -(-t.steps // t.valid_every)
+    want = {"framed_matmul": want_step["framed_matmul"] * t.steps
+            + k["framed_matmul"] * (t.valid_steps + 3) * n_valid,
+            "decode_ola": k["decode_ola"] * (t.steps + (t.valid_steps + 1) * n_valid)}
+    if launches != want:
+        raise AssertionError(f"flagship training launches {launches}, want {want}")
+    valid = _valid_losses(tr.dir)
+    if len(valid) != n_valid or not valid[-1] < valid0:
+        raise AssertionError(f"flagship valid loss {valid0} at init, {valid} after training")
+    check_checkpoint_reloads(tr, final, t.steps)
+    ms = window_ms_per_step(tr.dir, skip={TRAIN_LOG_EVERY})
+    turns = []
+    step = t.steps
+    for mode in ("device", "host", "host", "device"):
+        draw = tr._draw if mode == "device" else tr.mixer.batch
+        turns.append((mode, timed_steps(tr, lambda s, d=draw: d("train", s, t.batch_size), step,
+                                        SPEED_TURN_STEPS)))
+        step += SPEED_TURN_STEPS
+    say(f"  c6_flagship from its config, device data, {t.steps} steps: {ms:.3f} ms/step median "
+        f"in fit after warm-up, peak memory {peak / 2**30:.3f} GiB, valid loss (EMA weights) "
+        f"{valid0:.4f} -> {[round(v, 4) for v in valid]}, launches {launches}; ms a step in "
+        f"turns of {SPEED_TURN_STEPS}: {[(m, round(v, 3)) for m, v in turns]}")
+    out = dict(steps=t.steps, batch=t.batch_size, chunk=t.chunk_samples, fit_s=fit_s,
+               ms_per_step=ms, peak_bytes=peak, valid_loss_init=valid0, valid_loss=valid,
+               launches_per_step=per_step, setup_s=setup_s, loss_device=loss_dev,
+               loss_host=loss_host, turns_ms=turns,
+               cut={"steps": [96000, C6F_STEPS], "valid_every": [9600, C6F_VALID_EVERY]})
+    return out, {"c6_flagship_device_train": launches}
+
+
+def bf16_card_matches_cpu(tr, state0: dict, batch0, what: str, tols: tuple,
+                          prepare=None) -> dict:
+    """One bf16 step from ``state0`` on ``batch0``, card against CPU: the
+    loss relative to the CPU's, the gradients' distance over all tensors and
+    each tensor's (save those whose exact gradient is 0), relative to the
+    CPU's norms, each held to its entry of ``tols``."""
+    loss_tol, grad_tol, tensor_tol = tols
+    (loss_gpu, _, grads_gpu), (loss_cpu, _, grads_cpu) = card_and_cpu_step(
+        tr, state0, batch0, prepare)
+    grads_gpu = {n: g for n, g in grads_gpu.items() if g is not None}
+    grads_cpu = {n: g for n, g in grads_cpu.items() if g is not None}
+    if set(grads_gpu) != set(grads_cpu):
+        raise AssertionError(f"{what}: gradients {sorted(grads_gpu)} against {sorted(grads_cpu)}")
+    loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    diff = sum(float(((grads_gpu[n] - g) ** 2).sum()) for n, g in grads_cpu.items())
+    grad_rel = (diff / sum(float((g**2).sum()) for g in grads_cpu.values())) ** 0.5
+    skip = cancelled_gradients(tr.model)
+    tensor_rel = {n: float((grads_gpu[n] - g).norm() / g.norm()) for n, g in grads_cpu.items()
+                  if n not in skip}
+    worst = max(tensor_rel, key=tensor_rel.get)
+    say(f"  {what}, one bf16 step: loss card {loss_gpu:.7f} cpu {loss_cpu:.7f} ({loss_rel:.2e} "
+        f"relative, tol {loss_tol:g}); gradients {grad_rel:.3e} apart over all "
+        f"{len(grads_cpu)} tensors (tol {grad_tol:g}), worst tensor {worst} "
+        f"{tensor_rel[worst]:.3e} (tol {tensor_tol:g})")
+    if not (loss_rel <= loss_tol and grad_rel <= grad_tol and tensor_rel[worst] <= tensor_tol):
+        raise AssertionError(f"{what}: bf16 step card against CPU {loss_rel}, {grad_rel}, "
+                             f"{worst} {tensor_rel[worst]}")
+    if not all(torch.isfinite(g).all() for g in grads_gpu.values()):
+        raise AssertionError(f"{what}: non-finite gradients on the card")
+    return dict(loss_card=loss_gpu, loss_cpu=loss_cpu, loss_rel_err=loss_rel,
+                grad_rel_err=grad_rel, worst_tensor=worst, worst_tensor_rel_err=tensor_rel[worst])
+
+
+def _bf16(cfg):
+    """A model config with its separator in bfloat16."""
+    return dataclasses.replace(cfg, sep=dataclasses.replace(cfg.sep, compute_dtype="bfloat16"))
+
+
+def blstm_bf16_costs(model) -> dict:
+    """c1_dpcl's 2x300 BLSTM at phase 3's serving shape ([8, 1001, 129]):
+    host-clock ms of one forward (between synchronisations, launches
+    included) of the packed float32 path, the bf16 loop, and cuDNN's own bf16
+    LSTM (not the port's path: it keeps h, and maybe c, in bf16), with the
+    latter's largest difference from the bf16 loop over the loop's peak."""
+    import copy
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(BATCH, model.cfg.front.frames_for(SECONDS * SAMPLE_RATE),
+                    model.cfg.front.feature_dim, generator=gen, device="cuda")
+    lstm = model.blstm
+    cudnn_bf16 = copy.deepcopy(lstm.lstm).to(torch.bfloat16)
+
+    def cudnn():
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False):
+            return cudnn_bf16(x.to(torch.bfloat16))[0].float()
+
+    paths = {"packed_f32": lambda: lstm(x),
+             "loop_bf16": lambda: lstm(x, compute_dtype=torch.bfloat16), "cudnn_bf16": cudnn}
+    out, ms = {}, {}
+    with torch.no_grad():
+        for name, fn in paths.items():
+            out[name] = fn()
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms[name] = float(np.median(times))
+    ref = out["loop_bf16"]
+    err = {n: float((out[n] - ref).abs().max() / ref.abs().max()) for n in ("packed_f32",
+                                                                             "cudnn_bf16")}
+    say(f"  c1's BLSTM forward at {tuple(x.shape)}: ms {ms}; largest difference from the bf16 "
+        f"loop over its peak {err}")
+    return dict(shape=list(x.shape), ms=ms, err_vs_loop_bf16=err)
+
+
+def phase_c1_bf16(store, workdir: str, speed_f32: dict) -> tuple[dict, dict]:
+    """The c1 recipe in bf16 with device data: its first step card against
+    CPU, fit with B1/B2 launched as often as float32 c1's fit, ms a step
+    against float32; then checkpoints/c1_dpcl served in bf16 (phase 3's RTF,
+    phase 4's gated quality); returns (results, launches by path)."""
+    from amss_tpu_torch.configs.recipes import c1_stft_dpcl
+    from amss_tpu_torch.train.engine import Trainer
+    from amss_tpu_torch.weights import load_model_from_run
+
+    def trainer(dtype: str):
+        r = c1_stft_dpcl(steps=C1_BF16_STEPS, valid_every=C1_BF16_STEPS // 2, device_data=True)
+        r = dataclasses.replace(r, model=dataclasses.replace(r.model, sep=dataclasses.replace(
+            r.model.sep, compute_dtype=dtype)))
+        return Trainer(r, store, workdir=os.path.join(workdir, f"runs_{dtype}"))
+
+    tr, tr32 = trainer("bfloat16"), trainer("float32")
+    t = tr.recipe.train
+    state0 = tr.init_state()
+    step_check = bf16_card_matches_cpu(tr, state0, tr.mixer.batch("train", 0, t.batch_size),
+                                       "c1 2x300", C1_BF16_TOLS)
+    per_step = check_train_step_needs_no_host_sync(tr, tr._draw("train", 0, t.batch_size))
+    tr.load_state(state0)
+    valid0 = tr.valid_loss()
+    final, launches, fit_s, peak = _fit_counted(tr, state0)
+    _, launches32, fit32_s, _ = _fit_counted(tr32, tr32.init_state())
+    n_valid = -(-t.steps // t.valid_every)
+    want = {"framed_matmul": 2 * t.steps + 2 * t.valid_steps * n_valid + 3 * n_valid,
+            "decode_ola": n_valid}
+    if not launches == launches32 == want:
+        raise AssertionError(f"bf16 c1 fit launched {launches}, float32 {launches32}, "
+                             f"want {want}")
+    valid = _valid_losses(tr.dir)
+    if len(valid) != n_valid or not np.isfinite(valid).all():
+        raise AssertionError(f"bf16 c1 valid loss {valid}")
+    check_checkpoint_reloads(tr, final, t.steps)
+    turns = []
+    for name, trn in (("bfloat16", tr), ("float32", tr32), ("float32", tr32),
+                      ("bfloat16", tr)):
+        turns.append((name, timed_steps(trn, lambda s, d=trn._draw: d("train", s, t.batch_size),
+                                        t.steps, 5)))
+    say(f"  c1 bf16 with device data, {t.steps} steps: fit {fit_s:.2f} s (float32 "
+        f"{fit32_s:.2f} s), peak memory {peak / 2**30:.3f} GiB, valid loss {valid0:.4f} -> "
+        f"{[round(v, 4) for v in valid]}, launches {launches} (float32's {launches32}), per "
+        f"step {per_step}; ms a step in turns of 5: {[(m, round(v, 3)) for m, v in turns]}")
+
+    model = load_model_from_run(CKPT)
+    costs = blstm_bf16_costs(model)
+    model.cfg = _bf16(model.cfg)
+    speed, serve_launches = phase_speed(model)
+    reset_launches()
+    q = phase_quality(model)
+    q_launches = launch_counts()
+    calls = -(-QUALITY_N // BATCH) + 1
+    if q_launches != {"framed_matmul": calls, "decode_ola": calls}:
+        raise AssertionError(f"bf16 quality launched {q_launches}, want {calls} each")
+    say(f"  c1_dpcl served in bf16 (64 x 8 s, batch 8): rtf {speed['rtf_pass2']:.6f} (float32, "
+        f"phase 3: {speed_f32['rtf_pass2']:.6f}), launches {serve_launches}; quality si_sdri "
+        f"{q['si_sdri_db']:.3f} dB, 95% CI {q['ci95']} (gate {C1_BF16_QUALITY_MIN_DB} dB)")
+    if not q["si_sdri_db"] >= C1_BF16_QUALITY_MIN_DB:
+        raise AssertionError(f"bf16 c1 SI-SDRi {q['si_sdri_db']:.3f} dB < "
+                             f"{C1_BF16_QUALITY_MIN_DB} dB")
+    out = dict(steps=t.steps, batch=t.batch_size, chunk=t.chunk_samples, fit_s=fit_s,
+               fit_f32_s=fit32_s, peak_bytes=peak, valid_loss_init=valid0, valid_loss=valid,
+               launches_per_step=per_step, turns_ms=turns, serving=speed, quality=q,
+               blstm_costs=costs, **step_check)
+    return out, {"c1_bf16_train": launches, "c1_f32_device_train": launches32,
+                 "c1_bf16_serve": serve_launches, "c1_bf16_quality": q_launches}
+
+
+def phase_bf16_dual_path_and_enh(store, workdir: str) -> dict:
+    """One bf16 step of c6 with the DPRNN trunk and of the enh refiner over
+    c1_dpcl (from one first pass), card against CPU; exporting a bf16 c1
+    raises ROADMAP item 24b's error."""
+    from amss_tpu_torch.configs.recipes import c6_dual_path, enh_dpcl
+    from amss_tpu_torch.infer.export import export_serving
+    from amss_tpu_torch.train.engine import Trainer
+    from amss_tpu_torch.weights import load_model_from_run
+
+    out = {}
+    for name, recipe, tols in (("c6_dprnn", c6_dual_path("dprnn"), DP_BF16_TOLS),
+                               ("enh", enh_dpcl(CKPT), C1_BF16_TOLS)):
+        recipe = dataclasses.replace(recipe, model=_bf16(recipe.model))
+        tr = Trainer(recipe, store, workdir=os.path.join(workdir, f"runs_bf16_{name}"))
+        state0 = tr.init_state()
+        batch0 = tr.mixer.batch("train", 0, recipe.train.batch_size)
+        prepare = None
+        if name == "enh":  # one first pass for both (ROADMAP C.2)
+            mix0 = tr._dequantize(tr._device_batch(batch0))["sources"].sum(dim=1)
+            est0 = tr.model.base.separate(mix0)
+
+            def prepare(model, device, est0=est0):
+                model._frozen[0] = FixedFirstPass(model.base, est0.to(device))
+
+        out[name] = bf16_card_matches_cpu(tr, state0, batch0, name, tols, prepare)
+    model = load_model_from_run(CKPT)
+    model.cfg = _bf16(model.cfg)
+    with tempfile.TemporaryDirectory(prefix="amss_bf16_export_") as d:
+        try:
+            export_serving(model, d, lengths=(QUALITY_T,), batch=1, platforms=("cuda",))
+        except NotImplementedError as e:
+            if "24b" not in str(e):
+                raise
+            out["export_refused"] = str(e)
+        else:
+            raise AssertionError("exporting a bf16 c1 did not raise")
+    say(f"  exporting c1 in bf16 raises: {out['export_refused']}")
+    return out
+
+
 def main() -> None:
     faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
     t_start = time.perf_counter()
@@ -3128,12 +3596,46 @@ def main() -> None:
         cli, cli_launches = phase_cli(workdir)
         say(f"phase 27 server and CLI: {time.perf_counter() - t0:.2f} s")
 
+    with tempfile.TemporaryDirectory(prefix="amss_data_") as workdir:
+        t0 = time.perf_counter()
+        fill = phase_native_fill(training_corpus(workdir))
+        say(f"native fill ({FILL_BATCH} x 2 x {FILL_CHUNK}) on the host of {card}: native "
+            f"{fill['host_ms']['native']:.3f} ms, numpy {fill['host_ms']['numpy']:.3f} ms")
+        say(f"phase 28 native batch fill: {time.perf_counter() - t0:.2f} s")
+
+        t0 = time.perf_counter()
+        big, big_facts = training_scale_corpus(workdir)
+        resident = {"corpus": big_facts, **phase_device_corpus(big)}
+        say(f"DeviceCorpus ({resident['nbytes'] / 1e6:.1f} MB) on {card}: upload "
+            f"{resident['upload_ms']:.3f} ms, gather {resident['gather_ms']:.4f} ms")
+        say(f"phase 29 DeviceCorpus at training scale: {time.perf_counter() - t0:.2f} s")
+
+        t0 = time.perf_counter()
+        flagship, flagship_launches = phase_train_flagship(big, workdir)
+        say(f"training (c6_flagship's config.json with device data, batch {flagship['batch']} x "
+            f"{flagship['chunk']}, {flagship['steps']} steps) on {card}: "
+            f"{flagship['ms_per_step']:.3f} ms/step in fit; device against host data, ms a step "
+            f"in turns: {flagship['turns_ms']}")
+        say(f"phase 30 c6_flagship from its config: {time.perf_counter() - t0:.2f} s")
+
+        t0 = time.perf_counter()
+        c1_bf16, c1_bf16_launches = phase_c1_bf16(big, workdir, speed)
+        say(f"c1 in bf16 on {card}: serving rtf {c1_bf16['serving']['rtf_pass2']:.6f} (float32 "
+            f"{speed['rtf_pass2']:.6f}), si_sdri {c1_bf16['quality']['si_sdri_db']:.3f} dB; "
+            f"training ms a step in turns {c1_bf16['turns_ms']}")
+        say(f"phase 31 c1 in bf16 with device data: {time.perf_counter() - t0:.2f} s")
+
+        t0 = time.perf_counter()
+        bf16_more = phase_bf16_dual_path_and_enh(big, workdir)
+        say(f"phase 32 dprnn and enh in bf16: {time.perf_counter() - t0:.2f} s")
+
     per_path = {"c1_serve": launches, "c1_train": train_launches, "c2_serve": launches_c2,
                 **train_c2_launches, "long_form": long_launches, **serve_c6_launches,
                 **train_c6_launches, "c7_realtime": realtime_launches, **c7_launches,
                 **c3_launches, **c4_launches, **count_launches, **enh_launches,
                 **count_train_launches, **corrupt_launches, "c1_artifact": artifact_launches,
-                "c7_realtime_artifact": rt_artifact_launches, "cli": cli_launches}
+                "c7_realtime_artifact": rt_artifact_launches, "cli": cli_launches,
+                **flagship_launches, **c1_bf16_launches}
     record = []
     other = {"framed_matmul": "decode_ola", "decode_ola": "framed_matmul"}
     for name, (source, replaces, design) in KERNELS.items():
@@ -3180,7 +3682,9 @@ def main() -> None:
                     "c6_corrupt_training": corrupt, "evaluation": evaluation,
                     "c1_artifact": artifact, "int8_artifact": int8,
                     "realtime_artifact": rt_artifact, "server": server, "cli": cli,
-                    "card": card,
+                    "native_fill": fill, "device_corpus": resident,
+                    "c6_flagship_device_training": flagship, "c1_bf16": c1_bf16,
+                    "bf16_dprnn_enh": bf16_more, "card": card,
                     "total_s": time.perf_counter() - t_start}))
     say(card)
     say(json.dumps({"kernels": record}))

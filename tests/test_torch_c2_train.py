@@ -189,11 +189,15 @@ def test_image_summaries_work_for_both_c2_models(store, tmp_path, caplog):
 def test_base_run_still_raises(store, tmp_path):
     """The name is kept from when ``base_run`` raised: it is ported for the
     enhancer (tests/test_torch_enhance.py), and a separator of another kind
-    ignores it, as the JAX package's ``make_model`` does.  What still raises
-    is the corpus resident on the card (ROADMAP A.12)."""
+    ignores it, as the JAX package's ``make_model`` does.  The corpus
+    resident on the card, which raised here until it was ported, builds
+    (``tests/test_torch_device_corpus.py``); what still raises is multi-GPU
+    data parallel (ROADMAP item 23)."""
     r = dataclasses.replace(_tiny(recipes.c2_adapt_dpcl()), base_run="runs/somewhere")
     tr = Trainer(r, store, workdir=str(tmp_path), device="cpu")
     assert tr.model.cfg.kind == "dpcl"
-    r = dataclasses.replace(r, train=dataclasses.replace(r.train, device_data=True))
-    with pytest.raises(NotImplementedError, match="A.12"):
+    dd = dataclasses.replace(r, train=dataclasses.replace(r.train, device_data=True))
+    assert Trainer(dd, store, workdir=str(tmp_path), device="cpu").corpus is not None
+    r = dataclasses.replace(r, train=dataclasses.replace(r.train, data_axis=2))
+    with pytest.raises(NotImplementedError, match="item 23"):
         Trainer(r, store, workdir=str(tmp_path), device="cpu")

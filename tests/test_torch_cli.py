@@ -132,7 +132,8 @@ def test_grid_parse_matches_jax():
     [],
     ["--hidden", "16", "--layers", "1", "--lr", "3e-3", "--ema-decay", "0.9"],
     ["--train-noise-snr", "5", "20", "--train-reverb-rt60", "0.1", "0.4", "--min-speakers", "1"],
-], ids=["defaults", "widths", "corruptions"])
+    ["--device-data", "--compute-dtype", "bfloat16"],
+], ids=["defaults", "widths", "corruptions", "device_data_bf16"])
 def test_recipe_from_flags_matches_jax(corpus, flags):
     """The same flags build the same recipe (so the same run id) in both CLIs."""
     def parse(mod):

@@ -37,6 +37,7 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import amss_tpu_torch.cli, amss_tpu_torch.__main__, amss_tpu_torch.infer.export\n"
         "import amss_tpu_torch.infer.server, amss_tpu_torch.infer.quantize, amss_tpu_torch.ckpt.tree\n"
         "import amss_tpu_torch.utils.profiling, amss_tpu_torch.utils.debug\n"
+        "import amss_tpu_torch.data.native, amss_tpu_torch.data.device_corpus\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(BANNED)!r})\n"
         "print(','.join(bad))\n"
     )

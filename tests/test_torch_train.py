@@ -198,9 +198,11 @@ def test_fit_lowers_the_loss_and_resumes_exactly(store, tmp_path):
 
 
 def test_trainer_raises_without_a_card_and_for_what_is_not_ported(store, tmp_path, monkeypatch):
-    for over in ({"device_data": True}, {"data_axis": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(_tiny(recipes, **over), store, workdir=str(tmp_path), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 23"):
+        Trainer(_tiny(recipes, data_axis=2), store, workdir=str(tmp_path), device="cpu")
+    # the corpus resident on the card is ported (tests/test_torch_device_corpus.py)
+    dd = Trainer(_tiny(recipes, device_data=True), store, workdir=str(tmp_path), device="cpu")
+    assert dd.corpus is not None and dd.corpus.device.type == "cpu"
     # valid_quality is ported (tests/test_torch_valid_quality.py): it trains
     # and logs valid/si_sdri
     quality = Trainer(_tiny(recipes, steps=1, valid_every=1, valid_quality=True), store,
