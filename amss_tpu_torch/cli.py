@@ -12,8 +12,12 @@ or on the CPU (``--device cpu``).
   python -m amss_tpu_torch serve --export-dir DIR --port 8080
 
 ``--device`` takes the place of the JAX CLI's ``--platform`` and works in any
-position.  What needs several cards (``--mesh-devices``, ``--data-axis`` > 1)
-raises ``NotImplementedError`` (ROADMAP item 23).
+position.  ``train --data-axis N`` trains on N ranks (``train/engine.py``):
+it starts them itself, one per card over NCCL (more than the visible cards
+raises), or N CPU ranks over gloo with ``--device cpu``; started by
+``torchrun`` (``RANK`` and ``WORLD_SIZE`` set) it runs as that one rank.
+``separate --mesh-devices N`` spreads the chunks of over-bucket utterances
+over N cards (N CPU entries with ``--device cpu``).
 """
 
 from __future__ import annotations
@@ -35,7 +39,8 @@ def _add_train_overrides(p: argparse.ArgumentParser):
     p.add_argument("--seed", type=int)
     p.add_argument("--valid-every", type=int)
     p.add_argument("--data-axis", type=int,
-                   help="cards on the data axis (more than 1 is ROADMAP item 23)")
+                   help="data-parallel ranks: train starts one per card (nccl), or CPU "
+                        "ranks over gloo with --device cpu")
     p.add_argument("--device-data", action="store_const", const=True, default=None,
                    help="upload the corpus to the card once and send each step a plan "
                         "(speaker ids, starts, gains) that the card gathers")
@@ -180,16 +185,42 @@ def _trainer(args, store, recipe):
                    run_dir=getattr(args, "run_dir", None), device=args.device)
 
 
-def cmd_train(args):
+def _train_rank(rank: int, world: int, args, devices) -> None:
+    """Train as rank ``rank`` of ``world`` on ``devices[rank]`` (one
+    process's whole run when ``world`` is 1)."""
     from amss_tpu_torch.data.store import SpeakerStore
     from amss_tpu_torch.train.engine import Trainer
 
     store = SpeakerStore(args.corpus)
     recipe = _build_recipe(args, store)
-    trainer = Trainer(recipe, store, workdir=args.workdir, device=args.device)
-    print(f"run dir: {trainer.dir}")
+    trainer = Trainer(recipe, store, workdir=args.workdir, device=devices[rank])
+    if rank == 0:
+        print(f"run dir: {trainer.dir}", flush=True)
     state = trainer.restore() if args.resume else None
     trainer.fit(state)
+
+
+def cmd_train(args):
+    from amss_tpu_torch.parallel.mesh import init_data_parallel, make_mesh, run_ranks
+
+    n = args.data_axis or 1
+    backend = "nccl" if args.device == "cuda" else "gloo"
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:  # one rank of a torchrun launch
+        rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        device = (f"cuda:{os.environ.get('LOCAL_RANK', rank)}" if args.device == "cuda"
+                  else "cpu")
+        init_data_parallel(backend, rank, world, "env://", device)
+        try:
+            _train_rank(rank, world, args, {rank: device})
+        finally:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+    elif n > 1:
+        devices = make_mesh(n) if args.device == "cuda" else ["cpu"] * n
+        run_ranks(_train_rank, n, backend, args=(args, devices), devices=devices)
+    else:
+        _train_rank(0, 1, args, [args.device])
 
 
 def _load_for_inference(args, store):
@@ -283,10 +314,6 @@ def cmd_separate(args):
     from amss_tpu_torch.data.store import SpeakerStore, _read_wav
     from amss_tpu_torch.infer.streaming import StreamingSeparator
 
-    if getattr(args, "mesh_devices", None):
-        from amss_tpu_torch.infer.long import separate_long_sharded
-
-        separate_long_sharded()  # raises: ROADMAP item 23
     store = SpeakerStore(args.corpus)
     model, recipe = _load_for_inference(args, store)
     waves = [_read_wav(p)[0] for p in args.wav]
@@ -313,8 +340,14 @@ def cmd_separate(args):
                     f"{recipe.model.nb_speakers} sources; only clustering models (dpcl) "
                     "separate at a different k")
             kw["n_speakers"] = k
+    mesh = None
+    if getattr(args, "mesh_devices", None):
+        from amss_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = (make_mesh(args.mesh_devices) if args.device == "cuda"
+                else ["cpu"] * args.mesh_devices)
     sep = StreamingSeparator(model, sample_rate=recipe.sample_rate, separate_kwargs=kw,
-                             device=args.device)
+                             device=args.device, mesh=mesh)
     ests = sep.separate_all(waves)
     _write_separated(args.wav, ests, args.out, recipe.sample_rate, sep.meter.rtf)
 
@@ -553,7 +586,8 @@ def main(argv=None):
                            choices=["vad", "magnitude", "magvad"],
                            help="bin weighting of the --num-speakers auto eigengap Gram")
             p.add_argument("--mesh-devices", type=int, default=None,
-                           help="long audio over several cards (ROADMAP item 23, not ported)")
+                           help="spread the chunks of over-bucket utterances over this "
+                                "many cards (infer/long.py::separate_long_sharded)")
         if name == "profile":
             p.add_argument("--profile-steps", type=int, default=20)
             p.add_argument("--trace-dir", default="amss_trace")

@@ -8,7 +8,8 @@ config reconstruction and no tracing.  The two hand-written kernels stay in
 the programs as the operators ``amss::framed_matmul`` and ``amss::decode_ola``
 (``ops/kernels``), so a loaded CUDA program launches them, counted in their
 wrappers' ``launches``; the BLSTM takes its ``traced`` path, which reads no
-host data.
+host data, in float32, and one operator a layer, ``amss::blstm_bf16_layer``
+(``ops/blstm_bf16.py``), in bfloat16.
 
 A program is tied to the device it was traced on (its constants and the
 tensors it makes live there), so there is one per (bucket, platform), and
@@ -49,6 +50,7 @@ import numpy as np
 import torch
 
 # the operators the programs call are registered when these are imported
+import amss_tpu_torch.ops.blstm_bf16  # noqa: F401
 import amss_tpu_torch.ops.kernels.framed_matmul  # noqa: F401
 import amss_tpu_torch.ops.kernels.ola  # noqa: F401
 from amss_tpu_torch.ckpt.checkpoint import msgpack_restore, msgpack_serialize, to_host
@@ -178,22 +180,6 @@ def _meta_common(kind: str, model, platforms, sample_rate: int, recipe_dict, q_m
             "front": dataclasses.asdict(model.cfg.front), "recipe": recipe_dict}
 
 
-def _refuse_bf16_blstm(model) -> None:
-    """An exported BLSTM runs the ``traced`` path, cuDNN's float32 recurrence;
-    the bf16 one is a Python loop that a program would unroll over every
-    frame of a bucket.  So a model with a BLSTM in bf16 (its trunk's, a dual
-    path's, or an enhancer's refiner, down its chain of bases) is refused."""
-    m = model
-    while m is not None:
-        sep = m.cfg.sep
-        if sep.compute_dtype == "bfloat16" and (
-                sep.trunk in ("blstm", "dprnn") or m.cfg.kind == "enhance"):
-            raise NotImplementedError(
-                f"exporting a {m.cfg.kind} model whose BLSTM runs in bfloat16 is not "
-                "ported: ROADMAP item 24b")
-        m = getattr(m, "base", None)
-
-
 def export_serving(
     model,
     out_dir: str,
@@ -213,7 +199,6 @@ def export_serving(
     the ``StreamingSeparator`` contract.  ``quantize="int8"`` stores the
     parameters int8-compressed (about 4x smaller); the programs are the same
     and the loader dequantizes."""
-    _refuse_bf16_blstm(model)
     kw = separate_kwargs or {}
     tree = _model_tree(model)
     front = model.cfg.front

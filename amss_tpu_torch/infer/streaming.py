@@ -4,7 +4,9 @@
 Utterances are grouped into length buckets and padded to the bucket with a
 prefix frame mask; each group runs ``model.separate`` once.  Utterances longer
 than the largest bucket take the long-form path (``infer/long.py``) with
-chunks of the largest bucket, never truncated.  Every distinct shape is run
+chunks of the largest bucket, never truncated; with a ``mesh`` (a list of
+devices, ``parallel/mesh.py``) their chunks are spread over it
+(``separate_long_sharded``).  Every distinct shape is run
 once on zeros before it is timed, so first-use costs (the kernels' build,
 cuDNN's set-up) are booked as warm-up, not serving time.  Each timed phase
 ends on ``torch.cuda.synchronize()``.
@@ -18,7 +20,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from amss_tpu_torch.infer.long import separate_long, warm_long
+from amss_tpu_torch.infer.long import separate_long, separate_long_sharded, warm_long
 from amss_tpu_torch.utils.device import resolve_device, synchronize
 
 
@@ -57,11 +59,13 @@ class StreamingSeparator:
 
     ``model.separate`` must accept (mix [B, T], frame_mask=[B, T']).  The
     device is ``cuda`` unless the caller names another; with none named and no
-    card present, construction raises."""
+    card present, construction raises.  With ``mesh``, over-bucket utterances
+    spread their chunks over its devices."""
 
     def __init__(self, model, sample_rate: int = 8000, buckets: BucketSpec | None = None,
-                 separate_kwargs: dict | None = None, device=None):
+                 separate_kwargs: dict | None = None, device=None, mesh: list | None = None):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.model = model.to(self.device).eval()
         self.sample_rate = sample_rate
         self.buckets = buckets or BucketSpec()
@@ -106,7 +110,11 @@ class StreamingSeparator:
             self._warm.add(("long", max_bucket))
         for i in long_idx:
             t0 = time.perf_counter()
-            results[i] = separate_long(self.model, waves[i], chunk=max_bucket, **self.kw)
+            if self.mesh is None:
+                results[i] = separate_long(self.model, waves[i], chunk=max_bucket, **self.kw)
+            else:
+                results[i] = separate_long_sharded(self.model, waves[i], chunk=max_bucket,
+                                                   mesh=self.mesh, **self.kw)
             self.meter.compute_seconds += time.perf_counter() - t0
             self.meter.audio_seconds += len(waves[i]) / self.sample_rate
             self.meter.utterances += 1

@@ -24,16 +24,18 @@ With a dropout key and a rate, dropout follows every layer, the last one
 included, as in the JAX package's ``blstm_stack``; cuDNN then runs one layer
 at a time, copying that layer's weights out of the flat buffer each call.
 
-In bfloat16 (``compute_dtype``) every call, on either device, runs
+In bfloat16 (``compute_dtype``) every live call, on either device, runs
 ``loop_bf16``, the JAX package's ``_bilstm_fused_scan(compute_dtype=bf16)``:
-both directions in one loop, each step one batched ``[2, B, H] x [2, H, 4H]``
-product; x, h and the weights rounded to bf16, the products summed in
-float32, the bias, gates, cell state c, h and the mask's freeze in float32.
-Its products are ``_Bf16Bmm``, whose gradients are rounded to bf16 as JAX's
-are, the weights' cast made once outside the loop, so that a weight's
-gradient sums over the steps in bf16, as JAX's scan sums it.  It takes any
-mask.  cuDNN's own bf16 LSTM keeps h in bf16 and is not that function.  An
-exported program has no bf16 path (ROADMAP item 24b).
+``ops/blstm_bf16.py::bilstm_bf16`` a layer, both directions in one loop,
+each step one batched ``[2, B, H] x [2, H, 4H]`` product; x, h and the
+weights rounded to bf16, the products summed in float32, the bias, gates,
+cell state c, h and the mask's freeze in float32.  Its products are
+``Bf16Bmm``, whose gradients are rounded to bf16 as JAX's are, the weights'
+cast made once outside the loop, so that a weight's gradient sums over the
+steps in bf16, as JAX's scan sums it.  It takes any mask.  cuDNN's own bf16
+LSTM keeps h in bf16 and is not that function.  Under ``torch.export`` each
+layer is one operator, ``amss::blstm_bf16_layer``, which runs the same loop
+when the program runs.
 
 ``dense`` is the JAX package's ``dense`` (``blstm.py:43-46``) over an
 ``nn.Linear`` holding ``weight = wᵀ``, in float32 or bfloat16.
@@ -47,6 +49,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils.rnn import PackedSequence, pack_padded_sequence, pad_packed_sequence
+
+# importing ops/blstm_bf16.py registers the operator amss::blstm_bf16_layer
+from amss_tpu_torch.ops.blstm_bf16 import Bf16Bmm, bf16_mm, bilstm_bf16
 
 
 def prefix_lengths(mask: torch.Tensor) -> torch.Tensor:
@@ -100,8 +105,12 @@ class BLSTM(nn.Module):
         ``compute_dtype`` bfloat16 runs ``loop_bf16`` on any device."""
         if compute_dtype == torch.bfloat16:
             if torch.compiler.is_exporting():
-                raise NotImplementedError(
-                    "exporting a BLSTM in bfloat16 is not ported: ROADMAP item 24b")
+                if rng is not None and dropout_rate > 0.0:
+                    raise NotImplementedError("an exported BLSTM runs without dropout")
+                h = x
+                for layer in range(self.layers):
+                    h = torch.ops.amss.blstm_bf16_layer(h, mask, *self._bf16_weights(layer))
+                return h
             return self.loop_bf16(x, mask, dropout_rate, rng)
         if compute_dtype != torch.float32:
             raise ValueError(f"compute dtype {compute_dtype} is neither float32 nor bfloat16")
@@ -171,41 +180,20 @@ class BLSTM(nn.Module):
             h = self._layer_loop(h, mask, layer)
         return h
 
-    def _layer_bf16(self, x: torch.Tensor, mask: torch.Tensor | None, layer: int) -> torch.Tensor:
-        """One layer, both directions in one loop (direction a leading batch
-        axis), bf16 products into float32 (``_bilstm_fused_scan``)."""
-        b, t, _ = x.shape
-        hd = self.hidden
+    def _bf16_weights(self, layer: int) -> tuple:
+        """One layer's (wx ``[2, In, 4H]``, wh ``[2, H, 4H]``) in bf16 and bias
+        ``[2, 1, 4H]`` in float32, (forward, backward) stacked; the casts
+        happen once, outside the loop, as in the JAX package."""
         fwd, bwd = self._weights(layer, False), self._weights(layer, True)
-        # the casts happen once, outside the loop, as in the JAX package
-        wx = torch.stack([fwd[0].T, bwd[0].T]).to(torch.bfloat16)  # [2, In, 4H]
-        wh = torch.stack([fwd[1].T, bwd[1].T]).to(torch.bfloat16)  # [2, H, 4H]
-        bias = torch.stack([fwd[2], bwd[2]])[:, None, :]  # [2, 1, 4H]
-        xd = torch.stack([x, torch.flip(x, dims=(1,))]).to(torch.bfloat16)  # [2, B, T, In]
-        xproj = (_Bf16Bmm.apply(xd.reshape(2, b * t, -1), wx)
-                 + bias).reshape(2, b, t, 4 * hd)  # the input projection, hoisted
-        valid = None
-        if mask is not None:
-            valid = torch.stack([mask, torch.flip(mask, dims=(1,))])[..., None] > 0  # [2, B, T, 1]
-        h = x.new_zeros((2, b, hd), dtype=torch.float32)
-        c = torch.zeros_like(h)
-        outs = []
-        for s in range(t):
-            gates = xproj[:, :, s] + _Bf16Bmm.apply(h.to(torch.bfloat16), wh)
-            sig = torch.sigmoid(gates)  # i, f and o (the g quarter unused)
-            g = torch.tanh(gates[..., 2 * hd : 3 * hd])
-            c_new = sig[..., hd : 2 * hd] * c + sig[..., :hd] * g
-            h_new = sig[..., 3 * hd :] * torch.tanh(c_new)
-            if valid is None:
-                h, c = h_new, c_new
-                outs.append(h_new)
-            else:
-                m = valid[:, :, s]
-                c = torch.where(m, c_new, c)
-                h = torch.where(m, h_new, h)
-                outs.append(torch.where(m, h_new, torch.zeros_like(h_new)))
-        out = torch.stack(outs, dim=2)  # [2, B, T, H]
-        return torch.cat([out[0], torch.flip(out[1], dims=(1,))], dim=-1)
+        wx = torch.stack([fwd[0].T, bwd[0].T]).to(torch.bfloat16)
+        wh = torch.stack([fwd[1].T, bwd[1].T]).to(torch.bfloat16)
+        bias = torch.stack([fwd[2], bwd[2]])[:, None, :]
+        return wx, wh, bias
+
+    def _layer_bf16(self, x: torch.Tensor, mask: torch.Tensor | None, layer: int) -> torch.Tensor:
+        """One layer, both directions in one loop, bf16 products into float32
+        (``ops/blstm_bf16.py::bilstm_bf16``), differentiable."""
+        return bilstm_bf16(x, mask, *self._bf16_weights(layer), bmm=Bf16Bmm.apply)
 
     def loop_bf16(self, x: torch.Tensor, mask: torch.Tensor | None = None,
                   dropout_rate: float = 0.0, rng=None) -> torch.Tensor:
@@ -306,52 +294,6 @@ class BLSTM(nn.Module):
         return out.index_select(0, on_device(unorder)) * mask[..., None]
 
 
-# How the card multiplies two bf16 operands into a float32 result: cuBLAS's
-# bf16 product with a float32 output where this torch has ``aten::mm.dtype``,
-# else the float32 product of the bf16-rounded operands (TF32 off).  The CPU
-# always takes the second: its products are exact in float32 either way.
-BF16_PRODUCT = ("cublas_bf16_out_float32" if hasattr(torch.ops.aten.mm, "dtype")
-                else "float32_of_bf16_operands")
-
-
-def _bf16_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` of two 2-D bf16 tensors, summed and returned in float32."""
-    if a.device.type == "cuda" and BF16_PRODUCT == "cublas_bf16_out_float32":
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return a.float() @ b.float()
-
-
-def _bf16_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` of two 3-D bf16 tensors, batch by batch, summed and returned
-    in float32, as ``_bf16_mm``."""
-    if a.device.type == "cuda" and hasattr(torch.ops.aten.bmm, "dtype"):
-        return torch.bmm(a, b, out_dtype=torch.float32)
-    return torch.bmm(a.float(), b.float())
-
-
-class _Bf16Bmm(torch.autograd.Function):
-    """``a @ b`` of two bf16 tensors ``[D, M, K] x [D, K, N]`` into float32.
-    The backward is JAX's transpose of that product: each operand's gradient
-    is the float32 product of the float32 cotangent with the other bf16
-    operand, rounded to bf16 (the operand's own type), so that the gradients
-    of one operand used at many steps add up in bf16."""
-
-    @staticmethod
-    def forward(ctx, a, b):
-        ctx.save_for_backward(a, b)
-        return _bf16_bmm(a, b)
-
-    @staticmethod
-    def backward(ctx, g):
-        a, b = ctx.saved_tensors
-        da = db = None
-        if ctx.needs_input_grad[0]:
-            da = torch.bmm(g, b.float().transpose(1, 2)).to(torch.bfloat16)
-        if ctx.needs_input_grad[1]:
-            db = torch.bmm(a.float().transpose(1, 2), g).to(torch.bfloat16)
-        return da, db
-
-
 class _Bf16Dense(torch.autograd.Function):
     """``x @ wᵀ + b`` with x and w rounded to bf16, the products summed in
     float32 and the bias added in float32.  The backward is JAX's transpose
@@ -365,7 +307,7 @@ class _Bf16Dense(torch.autograd.Function):
         wb = weight.to(torch.bfloat16)
         ctx.save_for_backward(xb, wb)
         ctx.lead = x.shape[:-1]
-        return _bf16_mm(xb, wb.T).reshape(*x.shape[:-1], -1) + bias
+        return bf16_mm(xb, wb.T).reshape(*x.shape[:-1], -1) + bias
 
     @staticmethod
     def backward(ctx, g):

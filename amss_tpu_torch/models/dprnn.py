@@ -41,33 +41,74 @@ class DropoutKey:
     """A key for training-time draws (dropout, and the corruptions of
     ``models/front.py``), as a JAX PRNG key is for the JAX package's:
     ``split`` and ``fold_in`` derive child keys on the host, ``generator``
-    gives a generator seeded with the key on a device, and ``keep_mask`` draws
-    a mask from the one on the tensor's device.  The same key draws the same
-    mask again on one device; a CPU and a CUDA generator draw different masks
-    from one seed."""
+    gives a generator seeded with the key on a device, and ``rand``,
+    ``randn``, ``randint`` and ``keep_mask`` draw from the one on a device.
+    The same key draws the same values again on one device; a CPU and a CUDA
+    generator draw different values from one seed.
 
-    __slots__ = ("seed",)
+    A key of one rank of data-parallel training (``shard``) draws for the
+    global batch and keeps its rows: a draw of shape ``[n, ...]``, whose
+    leading axis holds the rank's ``local`` rows outermost (``n`` a multiple
+    of ``local``, as when chunks or frames are folded into the batch), is
+    the global draw's slice from row ``offset``.  So N ranks draw what one
+    process fed the ranks' rows concatenated in rank order draws.  Child
+    keys keep the shard."""
 
-    def __init__(self, seed: int):
+    __slots__ = ("seed", "rows")
+
+    def __init__(self, seed: int, rows: tuple[int, int, int] | None = None):
         self.seed = int(seed) % 2**63
+        self.rows = rows  # (offset, local, total) rows of the global batch
+
+    def shard(self, offset: int, local: int, total: int) -> DropoutKey:
+        """This key for the ``local`` rows from ``offset`` of a global batch
+        of ``total`` rows."""
+        if not (0 <= offset and 0 < local and offset + local <= total):
+            raise ValueError(f"rows {offset}..{offset + local} outside a batch of {total}")
+        return DropoutKey(self.seed, (offset, local, total))
 
     def split(self, n: int) -> list[DropoutKey]:
         g = torch.Generator().manual_seed(self.seed)
-        return [DropoutKey(s) for s in torch.randint(0, 2**62, (n,), generator=g).tolist()]
+        return [DropoutKey(s, self.rows)
+                for s in torch.randint(0, 2**62, (n,), generator=g).tolist()]
 
     def fold_in(self, data: int) -> DropoutKey:
         """The key of ``data`` (a step, a microbatch) under this one."""
         g = torch.Generator().manual_seed((self.seed * 0x9E3779B97F4A7C15 + int(data)) % 2**63)
-        return DropoutKey(int(torch.randint(0, 2**62, (1,), generator=g)))
+        return DropoutKey(int(torch.randint(0, 2**62, (1,), generator=g)), self.rows)
 
     def generator(self, device="cpu") -> torch.Generator:
         """A generator on ``device`` seeded with the key."""
         return torch.Generator(device=device).manual_seed(self.seed)
 
+    def _draw(self, fn, shape, device, *args) -> torch.Tensor:
+        shape = tuple(shape)
+        if self.rows is None:
+            return fn(*args, shape, generator=self.generator(device), device=device)
+        offset, local, total = self.rows
+        if shape[0] % local:
+            raise ValueError(f"a draw of {shape} for a shard of {local} rows")
+        fold = shape[0] // local
+        full = fn(*args, (total * fold, *shape[1:]), generator=self.generator(device),
+                  device=device)
+        return full[offset * fold : (offset + local) * fold]
+
+    def rand(self, shape, device="cpu") -> torch.Tensor:
+        """Uniform float32 in [0, 1)."""
+        return self._draw(torch.rand, shape, device)
+
+    def randn(self, shape, device="cpu") -> torch.Tensor:
+        """Standard normal float32."""
+        return self._draw(torch.randn, shape, device)
+
+    def randint(self, low: int, high: int, shape, device="cpu") -> torch.Tensor:
+        """Integers in [low, high), int64."""
+        return self._draw(torch.randint, shape, device, low, high)
+
     def keep_mask(self, shape, keep: float, device) -> torch.Tensor:
         """A boolean mask of ``shape``, each entry True with probability
         ``keep``."""
-        return torch.rand(shape, generator=self.generator(device), device=device) < keep
+        return self.rand(shape, device) < keep
 
 
 def apply_keep_mask(x: torch.Tensor, keep_mask: torch.Tensor, keep: float) -> torch.Tensor:

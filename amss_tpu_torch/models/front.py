@@ -102,13 +102,12 @@ def _to_device(t: torch.Tensor, device) -> torch.Tensor:
 
 def _host_uniform(key, shape, lo: float, hi: float) -> torch.Tensor:
     """Uniform float32 in [lo, hi) from a host generator seeded with ``key``."""
-    return lo + (hi - lo) * torch.rand(shape, generator=key.generator())
+    return lo + (hi - lo) * key.rand(shape)
 
 
 def draw_active_counts(rng, b: int, s: int, min_speakers: int) -> torch.Tensor:
     """k ~ U{min_speakers..s} per row, [b] int64 on the host."""
-    g = rng.fold_in(_DROP_KEY).generator()
-    return torch.randint(min_speakers, s + 1, (b,), generator=g)
+    return rng.fold_in(_DROP_KEY).randint(min_speakers, s + 1, (b,))
 
 
 def apply_drop(sources: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -134,7 +133,7 @@ def draw_noise(rng, shape, snr_db_range: tuple[float, float],
     ``device``), from ``split(2)`` of the key folded with the noise constant."""
     kn, ks = rng.fold_in(_NOISE_KEY).split(2)
     snr_db = _to_device(_host_uniform(ks, (shape[0],), *snr_db_range), device)
-    noise = torch.randn(shape, generator=kn.generator(device), device=device)
+    noise = kn.randn(shape, device)
     return snr_db, noise
 
 
@@ -166,7 +165,7 @@ def draw_reverb(rng, b: int, s: int, rir_len: int, rt60_range: tuple[float, floa
     kt, kd, kn = rng.fold_in(_REVERB_KEY).split(3)
     rt60 = _to_device(_host_uniform(kt, (b, s, 1), *rt60_range), device)
     drr_db = _to_device(_host_uniform(kd, (b, s, 1), *drr_db_range), device)
-    gauss = torch.randn((b, s, rir_len - 1), generator=kn.generator(device), device=device)
+    gauss = kn.randn((b, s, rir_len - 1), device)
     return rt60, drr_db, gauss
 
 

@@ -28,6 +28,22 @@ reverberation, dropped sources) draw from the same key, before the trunk and
 outside its recompute.  With ``train.valid_quality`` each validation also
 logs ``valid/si_sdri``.
 
+With ``train.data_axis`` N > 1 the Trainer is one of N ranks of a process
+group (``parallel/mesh.py``; the CLI's ``train --data-axis N`` starts them),
+under the JAX package's multi-process contract: each rank draws
+``batch_size // N`` rows with ``host=rank`` (the global batch is the ranks'
+rows in rank order) and uploads its own device corpus; its dropout and
+corruption keys draw for the global batch and keep its rows
+(``DropoutKey.shard``), microbatch by microbatch; the gradients and metrics
+are averaged over the ranks in one flat all-reduce after the last
+microbatch, before the clip and Adam, so every rank takes the same step
+from the same parameters, broadcast from rank 0 before the first.
+Validation averages the ranks' losses, so the early-stop decision is the
+same everywhere; rank 0 alone writes the config, the metrics, the summaries
+and the checkpoints.  The reduction is explicit, not
+``DistributedDataParallel``'s: a step's loss comes from the model's loss
+methods, not from a ``forward`` call whose reducer DDP would prepare.
+
 A run dir is named ``<recipe>_<run id>`` with the JAX package's run id, and
 holds the same files: ``config.json``, ``corpus.json``, ``metrics.jsonl`` and
 msgpack checkpoints in the JAX package's layout (``params`` and ``ema_params``
@@ -63,6 +79,7 @@ from amss_tpu_torch.models.dprnn import DropoutKey
 from amss_tpu_torch.models.l41 import L41Model
 from amss_tpu_torch.models.tasnet import TasNetModel
 from amss_tpu_torch.ops.metrics import sdr_improvement
+from amss_tpu_torch.parallel.mesh import all_reduce_mean, broadcast_tensors, rank_and_world
 from amss_tpu_torch.train.optim import Adam, AdamState, make_schedule
 from amss_tpu_torch.utils.config import ModelConfig, RecipeConfig, recipe_to_dict, run_id
 from amss_tpu_torch.utils.device import resolve_device
@@ -91,6 +108,20 @@ def _clone(named: dict) -> dict:
     return {k: v.detach().clone() for k, v in named.items()}
 
 
+class _NoMetrics:
+    """The metric writer of a rank other than 0: rank 0 writes the ranks'
+    metrics, which are equal."""
+
+    def scalars(self, step, values) -> None:
+        pass
+
+    def image(self, step, tag, img) -> None:
+        pass
+
+    def flush(self) -> None:
+        pass
+
+
 class Trainer:
     """Trains ``recipe`` on the speakers of ``store``, in
     ``<workdir>/<recipe name>_<run id>`` unless ``run_dir`` names the dir.
@@ -100,17 +131,23 @@ class Trainer:
     raises.  ``train.steps_per_call`` is accepted and runs the same per-step
     loop: the JAX package scans that many steps per call for the TPU, the
     per-step math is the same, and the run id leaves the knob out, so it
-    cannot change the trajectory."""
+    cannot change the trajectory.
+
+    A Trainer made inside a process group is that group's rank, and ``fit``
+    and ``valid_loss`` raise unless the group has ``train.data_axis`` ranks
+    (a Trainer that only restores a run needs no group)."""
 
     def __init__(self, recipe: RecipeConfig, store, workdir: str = "runs",
                  run_dir: str | None = None, device=None):
         t = recipe.train
-        if t.data_axis != 1:
-            raise NotImplementedError(
-                f"train.data_axis={t.data_axis}: multi-GPU data parallel is ROADMAP item 23")
-        if t.batch_size % max(t.accum_steps, 1) != 0:
+        if t.data_axis < 1 or t.batch_size % t.data_axis != 0:
             raise ValueError(
-                f"batch_size {t.batch_size} not divisible by accum_steps {t.accum_steps}")
+                f"global batch {t.batch_size} not divisible by {t.data_axis} ranks")
+        if (t.batch_size // t.data_axis) % max(t.accum_steps, 1) != 0:
+            raise ValueError(f"batch_size {t.batch_size} over {t.data_axis} ranks not "
+                             f"divisible by accum_steps {t.accum_steps}")
+        self.group = rank_and_world()  # (rank, world) inside a process group
+        self.rank = 0 if self.group is None else self.group[0]
         self.device = resolve_device(device)
         self.recipe = recipe
         self.rid = run_id(recipe)
@@ -132,7 +169,7 @@ class Trainer:
         self.opt = Adam(self.params, make_schedule(t), t.grad_clip)
         self.ema: list[torch.Tensor] | None = None
         self.step = 0
-        self.writer = MetricWriter(self.dir)
+        self.writer = MetricWriter(self.dir) if self.rank == 0 else _NoMetrics()
         self._ckpt = AsyncCheckpointer()
         self._warned_summaries = False
         self._warned_quality = False
@@ -228,12 +265,23 @@ class Trainer:
         return state
 
     # -- data --------------------------------------------------------------
-    def _draw(self, split: str, step: int, batch_size: int):
+    def _draw(self, split: str, step: int, batch_size: int, host: int = 0):
         """The host's draw of a batch: a ``Plan`` with a device corpus, else
         the audio."""
         if self.corpus is not None:
-            return self.mixer.plan(split, step, batch_size)
-        return self.mixer.batch(split, step, batch_size)
+            return self.mixer.plan(split, step, batch_size, host=host)
+        return self.mixer.batch(split, step, batch_size, host=host)
+
+    def _ranks(self) -> tuple[int, int]:
+        """(rank, world) of this Trainer; raises unless the process group
+        (none for one rank) has ``train.data_axis`` ranks."""
+        world = 1 if self.group is None else self.group[1]
+        if world != self.recipe.train.data_axis:
+            raise ValueError(f"train.data_axis={self.recipe.train.data_axis} needs a process "
+                             f"group of that many ranks; this process is one of {world} "
+                             "(parallel/mesh.py::init_data_parallel, or the CLI's train "
+                             "--data-axis)")
+        return self.rank, world
 
     @staticmethod
     def _host_arrays(batch) -> dict:
@@ -324,7 +372,11 @@ class Trainer:
         msum: dict = {}
         for i in range(accum):
             mb = {k: v[i * mb_size : (i + 1) * mb_size] for k, v in full.items()}
-            loss, metrics = self.model.loss_from_batch(mb, rng=key.fold_in(i))
+            mkey = key.fold_in(i)
+            if self.group is not None:  # this rank's rows of the global microbatch
+                rank, world = self.group
+                mkey = mkey.shard(rank * mb_size, mb_size, world * mb_size)
+            loss, metrics = self.model.loss_from_batch(mb, rng=mkey)
             loss.backward()
             for k, v in metrics.items():
                 msum[k] = msum[k] + v.detach() if k in msum else v.detach()
@@ -332,6 +384,10 @@ class Trainer:
         if accum > 1:
             grads = [g / accum for g in grads]
             msum = {k: v / accum for k, v in msum.items()}
+        if self.group is not None:  # the global mean, before the clip sees it
+            names = sorted(msum)
+            reduced = all_reduce_mean(grads + [msum[k] for k in names])
+            grads, msum = reduced[: len(grads)], dict(zip(names, reduced[len(grads) :]))
         for i in self._front:
             grads[i] = grads[i] * front_grad_scale
         self.opt.step(grads)
@@ -350,11 +406,17 @@ class Trainer:
         validating and checkpointing every ``valid_every`` steps and at the
         end; returns the final state."""
         r = self.recipe.train
-        self._write_config()
+        rank, world = self._ranks()
+        if rank == 0:
+            self._write_config()
         self.load_state(self.init_state() if state is None else state)
+        if self.group is not None:  # every rank starts from rank 0's state
+            st = self.opt.state
+            broadcast_tensors(self.params + (self.ema or []) + st.mu + st.nu)
         start = self.step
+        local_bs = r.batch_size // world
         batches = Prefetcher(
-            make_batch=lambda s: self._draw("train", s, r.batch_size),
+            make_batch=lambda s: self._draw("train", s, local_bs, host=rank),
             put_batch=self._device_batch, start_step=start, end_step=r.steps)
         best_v, stale = float("inf"), 0
         t0 = time.time()
@@ -372,8 +434,9 @@ class Trainer:
 
                 if (step + 1) % r.valid_every == 0 or step + 1 == r.steps:
                     vloss = self._validate(step)
-                    self._ckpt.save(self.dir, self.state_tree(self.state()), step=step + 1,
-                                    metric=vloss)
+                    if rank == 0:  # the ranks' states are equal
+                        self._ckpt.save(self.dir, self.state_tree(self.state()),
+                                        step=step + 1, metric=vloss)
                     if r.early_stop_patience > 0:
                         if vloss < best_v:
                             best_v, stale = vloss, 0
@@ -416,19 +479,27 @@ class Trainer:
 
     def valid_loss(self) -> float:
         """The mean loss over ``valid_steps`` fixed batches of the valid split
-        (``_valid_split``)."""
+        (``_valid_split``); over ranks, each draws its rows of every batch
+        and the ranks' means are averaged."""
         r = self.recipe.train
+        rank, world = self._ranks()
         split, offset = self._valid_split()
         losses = []
         with self._serving_weights():
             for i in range(r.valid_steps):
-                batch = self.prep(self._device_batch(self._draw(split, offset + i, r.batch_size)))
-                loss, _ = self.model.loss_from_batch(batch)
+                hb = self._draw(split, offset + i, r.batch_size // world, host=rank)
+                loss, _ = self.model.loss_from_batch(self.prep(self._device_batch(hb)))
                 losses.append(float(loss))
-        return float(np.mean(losses))
+        vloss = float(np.mean(losses))
+        if self.group is not None:
+            vloss = float(all_reduce_mean([torch.tensor(vloss, dtype=torch.float64,
+                                                        device=self.device)])[0])
+        return vloss
 
     def _validate(self, step: int) -> float:
         vloss = self.valid_loss()
+        if self.rank != 0:  # rank 0 writes what every rank would
+            return vloss
         self.writer.scalars(step + 1, {"valid/loss": vloss})
         if self.recipe.train.valid_quality:
             self._quality_summary(step)

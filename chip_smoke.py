@@ -161,7 +161,30 @@ Phases, each printing its wall seconds:
    does, ms a step against float32; ``checkpoints/c1_dpcl`` served in bf16,
    its RTF beside phase 3's and its quality gated (C1_BF16_QUALITY_MIN_DB);
 32. one bf16 step of c6 with the DPRNN trunk and of the enh refiner, card
-   against CPU; exporting a bf16 c1 raises (ROADMAP item 24b).
+   against CPU;
+33. the time-sharded STFT (``parallel/timeshard.py``) at 256/64 on [2,
+   8·64·1000] over a mesh of four entries of ``cuda:0``: equal to the
+   unsharded STFT within SHARD_STFT_TOL, B1 launched once a shard;
+34. long-form over a mesh of ``[cuda:0, cuda:0]``
+   (``separate_long_sharded``, through ``StreamingSeparator(mesh=...)``):
+   phase 9's mixtures, c1_dpcl's SI-SDRi gated as phase 9's, its launches
+   and RTF beside phase 9's, every mask the BLSTM gets a prefix (ROADMAP
+   C.5); c6_flagship against ``separate_long`` on the card at least
+   MESH_C6_MIN_DB, and bit for bit where the slices have the groups' shapes;
+35. data-parallel training: two ranks on ``cuda:0`` over gloo (NCCL refuses
+   two ranks on one card) fit the c1 recipe at full width (global batch 8 x
+   16384) for RANK_STEPS steps: parameters bit for bit equal across ranks,
+   the first step equal to one process's on the ranks' rows within
+   RANK_LOSS_TOL and RANK_GRAD_TOL, rank 0 alone writing checkpoints, ms a
+   step beside one process's; then c1_count's config.json (dropped sources)
+   for RANK_COUNT_STEPS steps with the same first-step check; then a
+   one-rank NCCL group for RANK_NCCL_STEPS steps, so the NCCL path runs;
+36. ``checkpoints/c1_dpcl`` in bf16 exported for cuda (one
+   ``amss::blstm_bf16_layer`` operator a BLSTM layer) and served from a
+   fresh process with no model module on phase 24's protocol: SI-SDRi gated
+   as phase 31's, its output against live bf16 serving within
+   BF16_ARTIFACT_TOL, B1 and B2 launched as often as phase 24's float32
+   artifact, its RTF beside phase 31's.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero,
@@ -173,6 +196,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import faulthandler
+import functools
 import json
 import os
 import re
@@ -453,6 +477,31 @@ C1_BF16_QUALITY_MIN_DB = 5.24
 # behind the adaptive front, whose log of near-silent codes magnifies
 # rounding (ROADMAP C.11); its bounds are about ten times those
 DP_BF16_TOLS = (1e-3, 5e-2, 0.1)
+
+# phases 33-36 check the several-card code on the one card of the machine,
+# with meshes that name it more than once and ranks that share it.  phase 33:
+# the bound of tests/test_timeshard.py
+SHARD_STFT_TOL = 1e-4
+SHARD_STFT_SAMPLES = 8 * 64 * 1000
+# phase 34: c6_flagship's long-form over the mesh against separate_long on the
+# card, as SI-SDR of one against the other: the TCN's bf16 products may round
+# otherwise at another batch size, and 40 dB is the card-against-CPU bound
+MESH_C6_MIN_DB = 40.0
+MESH = ("cuda:0", "cuda:0")
+# phase 35: the c1 recipe at full width over RANK_WORLD ranks; the first step
+# of the ranks against one process fed their rows: the loss relative, every
+# gradient within RANK_GRAD_TOL of the largest gradient magnitude (only the
+# order of the sums differs)
+RANK_WORLD = 2
+RANK_STEPS = 20
+RANK_COUNT_STEPS = 10
+RANK_NCCL_STEPS = 5
+RANK_LOSS_TOL = 1e-5
+RANK_GRAD_TOL = 1e-5
+# phase 36: the exported bf16 c1 against live bf16 serving, as the largest
+# difference over the live output's peak: one loop, one order of sums, so 0 is
+# expected
+BF16_ARTIFACT_TOL = 1e-5
 
 # name -> (source, the TPU kernel it replaces, its design)
 KERNELS = {
@@ -1218,6 +1267,7 @@ def phase_train(store, workdir: str) -> tuple[dict, dict]:
     return out, launches
 
 
+@functools.lru_cache(maxsize=1)
 def long_mixtures() -> tuple[list, list]:
     """Phase 9's two-speaker mixtures of LONG_SECONDS and their sources."""
     from amss_tpu_torch.data.synthetic import synth_speaker_wave_v2
@@ -1495,7 +1545,7 @@ def phase_serve_c6() -> tuple[dict, dict]:
     """c6_flagship served as phase 3 serves c1, its quality and c6_3spk's on
     phase 4's protocol, and the flagship on the card against the port on the
     CPU; returns (results, launches by path)."""
-    from amss_tpu_torch.models.blstm import BF16_PRODUCT
+    from amss_tpu_torch.ops.blstm_bf16 import BF16_PRODUCT
     from amss_tpu_torch.ops.metrics import si_sdr
     from amss_tpu_torch.weights import load_model_from_run
 
@@ -3325,12 +3375,9 @@ def phase_c1_bf16(store, workdir: str, speed_f32: dict) -> tuple[dict, dict]:
 
 def phase_bf16_dual_path_and_enh(store, workdir: str) -> dict:
     """One bf16 step of c6 with the DPRNN trunk and of the enh refiner over
-    c1_dpcl (from one first pass), card against CPU; exporting a bf16 c1
-    raises ROADMAP item 24b's error."""
+    c1_dpcl (from one first pass), card against CPU."""
     from amss_tpu_torch.configs.recipes import c6_dual_path, enh_dpcl
-    from amss_tpu_torch.infer.export import export_serving
     from amss_tpu_torch.train.engine import Trainer
-    from amss_tpu_torch.weights import load_model_from_run
 
     out = {}
     for name, recipe, tols in (("c6_dprnn", c6_dual_path("dprnn"), DP_BF16_TOLS),
@@ -3348,19 +3395,384 @@ def phase_bf16_dual_path_and_enh(store, workdir: str) -> dict:
                 model._frozen[0] = FixedFirstPass(model.base, est0.to(device))
 
         out[name] = bf16_card_matches_cpu(tr, state0, batch0, name, tols, prepare)
+    return out
+
+
+# -- phases 33-36: several cards, checked on one ------------------------------
+
+
+def _host_ms(fn, rounds: int = 10) -> float:
+    """Median host-clock ms of ``fn`` between synchronisations."""
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_sharded_stft(gen: torch.Generator) -> tuple[dict, dict]:
+    """The time-sharded STFT over four entries of ``cuda:0`` against the
+    unsharded plain STFT: the largest difference, B1's launches (one a shard)
+    and host-clock ms of each, with B1 on the whole signal beside them."""
+    from amss_tpu_torch.ops import stft
+    from amss_tpu_torch.ops.kernels import framed_matmul as b1
+    from amss_tpu_torch.parallel.mesh import make_mesh
+    from amss_tpu_torch.parallel.timeshard import sharded_stft_ri
+
+    win, hop = 256, 64
+    mesh = make_mesh(devices=["cuda:0"] * 4)
+    x = torch.randn(2, SHARD_STFT_SAMPLES, generator=gen, device="cuda")
+    reset_launches()
+    re, im = sharded_stft_ri(x, win, hop, mesh)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if launches != {"framed_matmul": len(mesh), "decode_ola": 0}:
+        raise AssertionError(f"the sharded STFT launched {launches}, want B1 once a shard")
+    want_re, want_im = stft.stft_ri(x, win, hop)
+    err = max(check("sharded STFT re", re, want_re, SHARD_STFT_TOL),
+              check("sharded STFT im", im, want_im, SHARD_STFT_TOL))
+    ms = {"sharded": _host_ms(lambda: sharded_stft_ri(x, win, hop, mesh)),
+          "b1_whole": _host_ms(lambda: b1.stft_ri(x, win, hop)),
+          "plain": _host_ms(lambda: stft.stft_ri(x, win, hop))}
+    say(f"  sharded STFT [2, {SHARD_STFT_SAMPLES}] at {win}/{hop} over {len(mesh)} entries of "
+        f"cuda:0: {err:.3e} from the plain STFT (tol {SHARD_STFT_TOL:g}), launches {launches}, "
+        f"host ms {ms}")
+    return dict(shape=[2, SHARD_STFT_SAMPLES], mesh=[str(d) for d in mesh], max_abs_err=err,
+                tol=SHARD_STFT_TOL, ms=ms), launches
+
+
+def phase_long_sharded(model, long_form: dict) -> tuple[dict, dict]:
+    """Phase 9's serving over the mesh MESH: its mixtures' long-form through
+    ``separate_long_sharded``, twice, c1's SI-SDRi gated as phase 9's, its
+    launches and RTF, the BLSTM's masks all prefixes (ROADMAP C.5); then
+    c6_flagship's long-form over the mesh against ``separate_long``."""
+    from amss_tpu_torch.infer.long import chunk_layout, separate_long, separate_long_sharded
+    from amss_tpu_torch.infer.streaming import BucketSpec, StreamingSeparator
+    from amss_tpu_torch.models import blstm
+    from amss_tpu_torch.ops.metrics import sdr_improvement, si_sdr
+    from amss_tpu_torch.parallel.mesh import make_mesh
+    from amss_tpu_torch.weights import load_model_from_run
+
+    mesh = make_mesh(devices=MESH)
+    t = SECONDS * SAMPLE_RATE
+    mixes, refs = long_mixtures()
+    rng = np.random.default_rng(0)
+    shorts = [rng.standard_normal(t).astype(np.float32) * 0.3 for _ in range(N_UTTS)]
+    half = N_UTTS // 2
+    waves = shorts[:half] + mixes + shorts[half:]
+    sep = StreamingSeparator(model, sample_rate=SAMPLE_RATE, buckets=BucketSpec(lengths=(t,)),
+                             mesh=mesh)
+    group = len(mesh) * 8  # the default chunk_batch_per_device, CHUNK_BATCH
+    calls = N_UTTS // BATCH + sum(
+        len(mesh) * -(-len(chunk_layout(len(m), t)[1]) // group) for m in mixes)
+    masks, prefix = {"calls": 0, "raised": 0}, blstm.prefix_lengths
+
+    def counted_prefix(mask):
+        masks["calls"] += 1
+        try:
+            return prefix(mask)
+        except ValueError:
+            masks["raised"] += 1
+            raise
+
+    blstm.prefix_lengths = counted_prefix
+    try:
+        reset_launches()
+        sep.separate_all(waves, max_batch=BATCH)
+        after1 = launch_counts()
+        sep.meter.compute_seconds = sep.meter.audio_seconds = 0.0
+        sep.meter.utterances = sep.meter.calls = 0
+        est = sep.separate_all(waves, max_batch=BATCH)
+        launches = launch_counts()
+    finally:
+        blstm.prefix_lengths = prefix
+    for n in launches:
+        if launches[n] - after1[n] != calls:
+            raise AssertionError(f"{n}: {launches[n] - after1[n]} launches in pass 2 over the "
+                                 f"mesh, want {calls}")
+    if masks["raised"]:
+        raise AssertionError(f"the BLSTM refused {masks['raised']} masks (ROADMAP C.5)")
+    if [e.shape for e in est] != [(2, len(w)) for w in waves] or not all(
+            np.isfinite(e).all() for e in est):
+        raise AssertionError("long-form over the mesh returned wrong shapes or non-finite samples")
+    imp = np.array([float(sdr_improvement(torch.from_numpy(e[None]).double(),
+                                          torch.from_numpy(r[None]).double(),
+                                          torch.from_numpy(x[None]).double())[0])
+                    for e, r, x in zip(est[half : half + len(mixes)], refs, mixes)])
+    m = sep.meter
+    say(f"  c1 long-form over {[str(d) for d in mesh]}: rtf {m.rtf:.6f} on pass 2 (phase 9: "
+        f"{long_form['rtf_pass2']:.6f}), si_sdri of the long mixtures {imp.mean():.3f} dB "
+        f"(phase 9: {long_form['si_sdri_db']:.3f}; gate {LONG_QUALITY_MIN_DB}), launches "
+        f"{launches} ({calls} calls a pass), the BLSTM's prefix check ran {masks['calls']} "
+        f"times and refused none")
+    if not imp.mean() >= LONG_QUALITY_MIN_DB:
+        raise AssertionError(f"long-form over the mesh: SI-SDRi {imp.mean():.3f} dB < "
+                             f"{LONG_QUALITY_MIN_DB} dB")
+
+    c6 = load_model_from_run(C6_FLAGSHIP)
+    c6_rows = []
+    for mix in mixes:
+        ref = separate_long(c6, mix, chunk=t)
+        got = separate_long_sharded(c6, mix, chunk=t, mesh=mesh)
+        n_chunks = len(chunk_layout(len(mix), t)[1])
+        db = si_sdr(torch.from_numpy(got).double(), torch.from_numpy(ref).double())
+        c6_rows.append(dict(seconds=len(mix) // SAMPLE_RATE, chunks=n_chunks,
+                            # one slice of 8 is separate_long's one group of 8
+                            same_shapes=n_chunks == 8,
+                            max_abs_diff=float(np.abs(got - ref).max()),
+                            min_db=float(db.min())))
+    worst = min(r["min_db"] for r in c6_rows)
+    same = [r["max_abs_diff"] for r in c6_rows if r["same_shapes"]]
+    other = [r["max_abs_diff"] for r in c6_rows if not r["same_shapes"]]
+    say(f"  c6_flagship long-form over the mesh against separate_long: min {worst:.2f} dB "
+        f"(bound {MESH_C6_MIN_DB}); largest difference where the slices have the groups' "
+        f"shapes {max(same):.3e}, elsewhere {max(other):.3e}")
+    if not worst >= MESH_C6_MIN_DB:
+        raise AssertionError(f"c6_flagship over the mesh: {worst:.2f} dB < {MESH_C6_MIN_DB}")
+    out = dict(mesh=[str(d) for d in mesh], rtf_pass2=m.rtf, rtf_pass2_phase9=long_form["rtf_pass2"],
+               si_sdri_db=float(imp.mean()), calls_pass2=calls, prefix_checks=masks["calls"],
+               c6_flagship=c6_rows)
+    return out, launches
+
+
+def capture_first_step(tr) -> dict:
+    """Keep the first step's metrics and the gradients Adam receives (after
+    the ranks' reduction, before the clip) in the returned dict."""
+    seen: dict = {}
+    step, opt_step = tr._train_step, tr.opt.step
+
+    def train_step(*a, **k):
+        m = step(*a, **k)
+        seen.setdefault("metrics", {n: float(v) for n, v in m.items()})
+        return m
+
+    def adam(grads):
+        seen.setdefault("grads", {n: g.detach().cpu().clone() for n, g in zip(tr.names, grads)})
+        return opt_step(grads)
+
+    tr._train_step, tr.opt.step = train_step, adam
+    return seen
+
+
+def rank_fit(rank: int, world: int, recipe, corpus: str, out_dir: str, device: str) -> None:
+    """One rank of phase 35 (a fresh process): fit ``recipe`` in its own run
+    dir ``out_dir/rank<r>`` on ``device``; save its first step, final
+    parameters, fit seconds and launches to ``out_dir/rank<r>.pt``."""
+    from amss_tpu_torch.data.store import SpeakerStore
+    from amss_tpu_torch.models import blstm
+    from amss_tpu_torch.parallel.mesh import all_reduce_mean
+    from amss_tpu_torch.train.engine import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tr = Trainer(recipe, SpeakerStore(corpus), run_dir=os.path.join(out_dir, f"rank{rank}"),
+                 device=device)
+    seen = capture_first_step(tr)
+    masks, prefix = [], blstm.prefix_lengths  # ROADMAP C.5: the masks the BLSTM gets
+
+    def counted_prefix(mask):
+        masks.append(mask.shape)
+        return prefix(mask)
+
+    blstm.prefix_lengths = counted_prefix
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    final = tr.fit(log_every=TRAIN_LOG_EVERY)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    blstm.prefix_lengths = prefix
+    launches = launch_counts()
+    # one step's reduction alone: the gradients' bucket over the ranks
+    reduce_ms = _host_ms(lambda: all_reduce_mean([p.detach() for p in tr.params]), rounds=5)
+    torch.save({"first": seen, "params": {n: v.cpu() for n, v in final["params"].items()},
+                "step": final["step"], "fit_s": fit_s, "launches": launches,
+                "reduce_ms": reduce_ms, "prefix_checks": len(masks)},
+               os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def _ranks_against_one(recipe, store, workdir: str, name: str, backend: str = "gloo",
+                       world: int = RANK_WORLD) -> dict:
+    """``recipe`` (data_axis = ``world``) fit by ``world`` ranks on
+    ``cuda:0``; with more than one rank, their parameters bit for bit equal,
+    their first step against one process fed their rows, rank 0 alone
+    writing; returns the numbers."""
+    from amss_tpu_torch.data.mixer import Batch
+    from amss_tpu_torch.parallel.mesh import run_ranks
+    from amss_tpu_torch.train.engine import Trainer
+
+    out_dir = os.path.join(workdir, f"ranks_{name}")
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    run_ranks(rank_fit, world, backend, args=(recipe, store.root, out_dir, "cuda:0"),
+              devices=["cuda:0"] * world)
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt")) for r in range(world)]
+    steps = recipe.train.steps
+    if any(r["step"] != steps for r in ranks):
+        raise AssertionError(f"{name}: ranks ended at {[r['step'] for r in ranks]}, want {steps}")
+    # ms a step: the median of fit's logged windows after the first where there
+    # are any (rank 0 logs the ranks' steps), else fit's wall time over its steps
+    windowed = steps > TRAIN_LOG_EVERY
+    ms = (window_ms_per_step(os.path.join(out_dir, "rank0"), skip={TRAIN_LOG_EVERY})
+          if windowed else 1e3 * ranks[0]["fit_s"] / steps)
+    out = dict(world=world, backend=backend, steps=steps, wall_s=wall, ms_per_step=ms,
+               ms_per_step_of=("windows after the first" if windowed else "fit's wall time"),
+               fit_s=[r["fit_s"] for r in ranks], reduce_ms=[r["reduce_ms"] for r in ranks],
+               prefix_checks=[r["prefix_checks"] for r in ranks],
+               launches=[r["launches"] for r in ranks],
+               first_loss=ranks[0]["first"]["metrics"])
+    if not all(np.isfinite(list(r["first"]["metrics"].values())).all() for r in ranks):
+        raise AssertionError(f"{name}: non-finite first-step metrics")
+    if world == 1:
+        return out
+    diff = max(float((p - ranks[r]["params"][n]).abs().max())
+               for n, p in ranks[0]["params"].items() for r in range(1, world))
+    if diff != 0.0:
+        raise AssertionError(f"{name}: parameters differ across ranks by {diff}")
+    ckpt0 = sorted(f for f in os.listdir(os.path.join(out_dir, "rank0")) if f.startswith("ckpt"))
+    others = [f for r in range(1, world) if os.path.isdir(os.path.join(out_dir, f"rank{r}"))
+              for f in os.listdir(os.path.join(out_dir, f"rank{r}"))]
+    if not ckpt0 or others:
+        raise AssertionError(f"{name}: rank 0 wrote {ckpt0}, the others {others}")
+
+    one = Trainer(dataclasses.replace(recipe, train=dataclasses.replace(recipe.train,
+                                                                        data_axis=1)),
+                  store, run_dir=os.path.join(out_dir, "one"))
+    seen = capture_first_step(one)
+    one.load_state(one.init_state())
+    local = recipe.train.batch_size // world
+    parts = [one.mixer.batch("train", 0, local, host=r) for r in range(world)]
+    one._train_step(one._device_batch(Batch(
+        sources=np.concatenate([p.sources for p in parts]),
+        speaker_ids=np.concatenate([p.speaker_ids for p in parts]),
+        gains=np.concatenate([p.gains for p in parts]))))
+    loss_rel = max(abs(ranks[0]["first"]["metrics"][k] - v) / abs(v)
+                   for k, v in seen["metrics"].items())
+    scale = max(float(g.abs().max()) for g in seen["grads"].values())
+    grad_err = max(float((ranks[0]["first"]["grads"][n] - g).abs().max())
+                   for n, g in seen["grads"].items()) / scale
+    one_fit = Trainer(one.recipe, store, run_dir=os.path.join(out_dir, "one_fit"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_fit.fit(log_every=TRAIN_LOG_EVERY)
+    torch.cuda.synchronize()
+    one_ms = (window_ms_per_step(one_fit.dir, skip={TRAIN_LOG_EVERY}) if windowed
+              else 1e3 * (time.perf_counter() - t0) / steps)
+    say(f"  {name} on {world} ranks on cuda:0 over {backend}, {steps} steps: parameters equal "
+        f"across ranks (max diff {diff}), rank 0 alone wrote {ckpt0}; first step against one "
+        f"process on the ranks' rows: loss {loss_rel:.2e} relative (tol {RANK_LOSS_TOL:g}), "
+        f"gradients {grad_err:.2e} of the largest (tol {RANK_GRAD_TOL:g}); ms a step in fit "
+        f"({out['ms_per_step_of']}) {ms:.2f} against one process's {one_ms:.2f}; one "
+        f"reduction of the gradients {[round(v, 2) for v in out['reduce_ms']]} ms; launches "
+        f"per rank {out['launches']}; the BLSTM's prefix check ran "
+        f"{out['prefix_checks']} times a rank (ROADMAP C.5: a refusal would fail the rank); "
+        f"ranks' wall {wall:.2f} s")
+    if not (loss_rel <= RANK_LOSS_TOL and grad_err <= RANK_GRAD_TOL):
+        raise AssertionError(f"{name}: {world} ranks against one process: loss {loss_rel}, "
+                             f"gradients {grad_err}")
+    out.update(params_max_diff=diff, loss_rel_err=loss_rel, grad_err=grad_err,
+               one_process_ms_per_step=one_ms, rank0_files=ckpt0)
+    return out
+
+
+def phase_ranks(workdir: str) -> tuple[dict, dict]:
+    """Data-parallel training on ``cuda:0``: the c1 recipe at full width on
+    two gloo ranks, c1_count's config.json on two, and a one-rank NCCL group
+    (phase 35)."""
+    from amss_tpu_torch.configs.recipes import c1_stft_dpcl
+    from amss_tpu_torch.utils.config import recipe_from_dict
+
+    store = training_corpus(workdir)
+    out = {}
+    r = c1_stft_dpcl(steps=RANK_STEPS, valid_every=RANK_STEPS)
+    out["c1"] = _ranks_against_one(
+        dataclasses.replace(r, train=dataclasses.replace(r.train, data_axis=RANK_WORLD)),
+        store, workdir, "c1")
+    with open(os.path.join(C1_COUNT, "config.json")) as f:
+        rc = recipe_from_dict(json.load(f))
+    rc = dataclasses.replace(rc, train=dataclasses.replace(
+        rc.train, steps=RANK_COUNT_STEPS, valid_every=RANK_COUNT_STEPS, data_axis=RANK_WORLD))
+    out["c1_count"] = _ranks_against_one(rc, store, workdir, "c1_count")
+    r1 = c1_stft_dpcl(steps=RANK_NCCL_STEPS, valid_every=RANK_NCCL_STEPS)
+    out["nccl"] = _ranks_against_one(r1, store, workdir, "c1_nccl", backend="nccl", world=1)
+    say(f"  one NCCL rank, {RANK_NCCL_STEPS} steps: first loss {out['nccl']['first_loss']}, "
+        f"ms a step {out['nccl']['ms_per_step']:.2f} ({out['nccl']['ms_per_step_of']}, "
+        f"NCCL's set-up in it), one reduction of the gradients {out['nccl']['reduce_ms']} ms")
+    return out, {"ranks_c1": out["c1"]["launches"][0],
+                 "ranks_c1_count": out["c1_count"]["launches"][0],
+                 "rank_nccl": out["nccl"]["launches"][0]}
+
+
+def phase_artifact_bf16(kept: dict, workdir: str, artifact_launches: dict,
+                        bf16_rtf: float) -> tuple[dict, dict]:
+    """checkpoints/c1_dpcl in bf16 exported for cuda and served as phase 24
+    serves float32's: from a fresh process with no model module, its quality
+    gated as phase 31's, its output against live bf16 serving, its launches
+    against phase 24's artifact, its RTF beside phase 31's live bf16 RTF."""
+    from amss_tpu_torch.infer.export import export_serving
+    from amss_tpu_torch.infer.streaming import BucketSpec, StreamingSeparator
+    from amss_tpu_torch.weights import load_model_from_run
+
     model = load_model_from_run(CKPT)
     model.cfg = _bf16(model.cfg)
-    with tempfile.TemporaryDirectory(prefix="amss_bf16_export_") as d:
-        try:
-            export_serving(model, d, lengths=(QUALITY_T,), batch=1, platforms=("cuda",))
-        except NotImplementedError as e:
-            if "24b" not in str(e):
-                raise
-            out["export_refused"] = str(e)
-        else:
-            raise AssertionError("exporting a bf16 c1 did not raise")
-    say(f"  exporting c1 in bf16 raises: {out['export_refused']}")
-    return out
+    out_dir = os.path.join(workdir, "c1_bf16_artifact")
+    t0 = time.perf_counter()
+    export_serving(model, out_dir, lengths=ART_LENGTHS, batch=BATCH, platforms=("cuda",),
+                   sample_rate=SAMPLE_RATE)
+    export_s = time.perf_counter() - t0
+    ep = torch.export.load(os.path.join(out_dir, f"serving_t{ART_LENGTHS[0]}_b{BATCH}.cuda.pt2"))
+    ops = sum("blstm_bf16_layer" in str(n.target) for n in ep.graph.nodes)
+    if ops != model.blstm.layers:
+        raise AssertionError(f"the bf16 program holds {ops} recurrence operators, want "
+                             f"{model.blstm.layers}")
+    waves = phase3_waves()
+    inp, outp = os.path.join(workdir, "bf16_in.npz"), os.path.join(workdir, "bf16_out.npz")
+    np.savez(inp, waves=np.stack(waves), quality=kept["mixes"])
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", ARTIFACT_CHILD, out_dir, inp, outp], cwd=REPO,
+                          capture_output=True, text=True, timeout=ART_CHILD_TIMEOUT_S)
+    child_s = time.perf_counter() - t0
+    log(proc.stderr[-4000:])
+    if proc.returncode != 0:
+        raise AssertionError(f"the bf16 artifact's process failed ({proc.returncode})")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    if child["model_modules"] or child["device"] != "cuda":
+        raise AssertionError(f"the bf16 artifact's process imported {child['model_modules']} "
+                             f"and ran on {child['device']}")
+    calls = N_UTTS // BATCH
+    for p, want in zip(child["passes"], (calls + 1, calls)):
+        if p["launches"] != {"framed_matmul": want, "decode_ola": want}:
+            raise AssertionError(f"the bf16 program launched {p['launches']}, want {want} each")
+    if child["passes"][1]["launches"] != artifact_launches:
+        raise AssertionError(f"the bf16 program launched {child['passes'][1]['launches']}, the "
+                             f"float32 one {artifact_launches}")
+    res = np.load(outp)
+    si_sdri = _si_sdri(res["quality"], kept["refs"], kept["mixes"])
+    live = np.stack(StreamingSeparator(model, sample_rate=SAMPLE_RATE,
+                                       buckets=BucketSpec(lengths=(QUALITY_T,)))
+                    .separate_all(list(kept["mixes"]), max_batch=BATCH))
+    err = float(np.abs(res["quality"] - live).max() / np.abs(live).max())
+    p1, p2 = child["passes"]
+    say(f"  bf16 c1 artifact: export {export_s:.2f} s ({ops} recurrence operators), from a "
+        f"fresh process (no model module): load {child['load_s']:.2f} s, warm-up "
+        f"{p1['warmup_s']:.2f} s, rtf {p2['rtf']:.6f} (pass 1 {p1['rtf']:.6f}; live bf16, "
+        f"phase 31: {bf16_rtf:.6f}), launches per pass {[p['launches'] for p in child['passes']]} "
+        f"(float32's pass 2: {artifact_launches}), si_sdri {si_sdri:.3f} dB (gate "
+        f"{C1_BF16_QUALITY_MIN_DB}); against live bf16 serving {err:.3e} of the peak (tol "
+        f"{BF16_ARTIFACT_TOL:g}); process {child_s:.2f} s")
+    if not si_sdri >= C1_BF16_QUALITY_MIN_DB:
+        raise AssertionError(f"the bf16 artifact's SI-SDRi {si_sdri:.3f} dB < "
+                             f"{C1_BF16_QUALITY_MIN_DB} dB")
+    if not err <= BF16_ARTIFACT_TOL:
+        raise AssertionError(f"the bf16 artifact against live bf16 serving: {err:.3e}")
+    out = dict(export_s=export_s, operators=ops, load_s=child["load_s"],
+               warmup_s=p1["warmup_s"], rtf_pass1=p1["rtf"], rtf_pass2=p2["rtf"],
+               live_bf16_rtf_phase31=bf16_rtf, utterances_per_s=p2["utterances_per_s"],
+               process_s=child_s, si_sdri_db=si_sdri, err_vs_live=err)
+    return out, p2["launches"]
 
 
 def main() -> None:
@@ -3629,13 +4041,33 @@ def main() -> None:
         bf16_more = phase_bf16_dual_path_and_enh(big, workdir)
         say(f"phase 32 dprnn and enh in bf16: {time.perf_counter() - t0:.2f} s")
 
+    t0 = time.perf_counter()
+    sharded_stft, sharded_stft_launches = phase_sharded_stft(gen)
+    say(f"phase 33 time-sharded STFT: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    long_mesh, long_mesh_launches = phase_long_sharded(model, long_form)
+    say(f"phase 34 long-form over a mesh: {time.perf_counter() - t0:.2f} s")
+
+    with tempfile.TemporaryDirectory(prefix="amss_ranks_") as workdir:
+        t0 = time.perf_counter()
+        ranks, ranks_launches = phase_ranks(workdir)
+        say(f"phase 35 data-parallel ranks: {time.perf_counter() - t0:.2f} s")
+
+        t0 = time.perf_counter()
+        bf16_artifact, bf16_artifact_launches = phase_artifact_bf16(
+            kept, workdir, artifact_launches, c1_bf16["serving"]["rtf_pass2"])
+        say(f"phase 36 bf16 c1 artifact: {time.perf_counter() - t0:.2f} s")
+
     per_path = {"c1_serve": launches, "c1_train": train_launches, "c2_serve": launches_c2,
                 **train_c2_launches, "long_form": long_launches, **serve_c6_launches,
                 **train_c6_launches, "c7_realtime": realtime_launches, **c7_launches,
                 **c3_launches, **c4_launches, **count_launches, **enh_launches,
                 **count_train_launches, **corrupt_launches, "c1_artifact": artifact_launches,
                 "c7_realtime_artifact": rt_artifact_launches, "cli": cli_launches,
-                **flagship_launches, **c1_bf16_launches}
+                **flagship_launches, **c1_bf16_launches, "sharded_stft": sharded_stft_launches,
+                "long_form_mesh": long_mesh_launches, **ranks_launches,
+                "c1_bf16_artifact": bf16_artifact_launches}
     record = []
     other = {"framed_matmul": "decode_ola", "decode_ola": "framed_matmul"}
     for name, (source, replaces, design) in KERNELS.items():
@@ -3684,7 +4116,9 @@ def main() -> None:
                     "realtime_artifact": rt_artifact, "server": server, "cli": cli,
                     "native_fill": fill, "device_corpus": resident,
                     "c6_flagship_device_training": flagship, "c1_bf16": c1_bf16,
-                    "bf16_dprnn_enh": bf16_more, "card": card,
+                    "bf16_dprnn_enh": bf16_more, "sharded_stft": sharded_stft,
+                    "long_form_mesh": long_mesh, "ranks": ranks, "c1_bf16_artifact": bf16_artifact,
+                    "card": card,
                     "total_s": time.perf_counter() - t_start}))
     say(card)
     say(json.dumps({"kernels": record}))

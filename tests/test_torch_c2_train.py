@@ -191,13 +191,16 @@ def test_base_run_still_raises(store, tmp_path):
     enhancer (tests/test_torch_enhance.py), and a separator of another kind
     ignores it, as the JAX package's ``make_model`` does.  The corpus
     resident on the card, which raised here until it was ported, builds
-    (``tests/test_torch_device_corpus.py``); what still raises is multi-GPU
-    data parallel (ROADMAP item 23)."""
+    (``tests/test_torch_device_corpus.py``).  Data-parallel training, which
+    raised here until it was ported (``tests/test_torch_ddp.py``), builds,
+    and its ``fit`` raises outside a process group of ``data_axis`` ranks."""
     r = dataclasses.replace(_tiny(recipes.c2_adapt_dpcl()), base_run="runs/somewhere")
     tr = Trainer(r, store, workdir=str(tmp_path), device="cpu")
     assert tr.model.cfg.kind == "dpcl"
     dd = dataclasses.replace(r, train=dataclasses.replace(r.train, device_data=True))
     assert Trainer(dd, store, workdir=str(tmp_path), device="cpu").corpus is not None
     r = dataclasses.replace(r, train=dataclasses.replace(r.train, data_axis=2))
-    with pytest.raises(NotImplementedError, match="item 23"):
-        Trainer(r, store, workdir=str(tmp_path), device="cpu")
+    dp = Trainer(r, store, workdir=str(tmp_path), device="cpu")
+    assert dp.group is None
+    with pytest.raises(ValueError, match="data_axis=2 needs a process group"):
+        dp.fit()

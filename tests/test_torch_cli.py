@@ -2,8 +2,9 @@
 package's dress rehearsal (``tests/test_cli_e2e.py``) with ``--device cpu``:
 a 16 kHz WAV tree ingested at 8 kHz, a tiny c1 trained, evaluated,
 separated (at the recipe's k and blind), profiled, exported and served from
-the artifact; then ``sweep``, ``python -m amss_tpu_torch``, the flags that need
-several cards, and the recipes the flags build against the JAX CLI's."""
+the artifact; then ``sweep``, ``python -m amss_tpu_torch``, the several-card
+flags on CPU ranks and a CPU mesh, and the recipes the flags build against
+the JAX CLI's."""
 
 import argparse
 import json
@@ -148,12 +149,38 @@ def test_recipe_from_flags_matches_jax(corpus, flags):
 
 
 def test_several_card_flags_raise(corpus, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 23"):
-        main(["train", *TINY, "--corpus", corpus, "--device", "cpu", "--workdir",
-              str(tmp_path), "--data-axis", "2"])
-    with pytest.raises(NotImplementedError, match="item 23"):
-        main(["separate", *TINY, "--corpus", corpus, "--device", "cpu", "--wav", "x.wav",
-              "--mesh-devices", "2"])
+    """The name is kept from when the several-card flags raised: ``train
+    --data-axis 2 --device cpu`` trains on two gloo CPU ranks, and rank 0
+    alone writes the run dir's checkpoints; ``separate --mesh-devices 2``
+    spreads an over-bucket utterance over two CPU entries.  What raises is a
+    mesh of more cards than there are (none here)."""
+    workdir = str(tmp_path / "runs")
+    common = [*TINY, "--corpus", corpus, "--device", "cpu"]
+    main(["train", *common, "--workdir", workdir, "--data-axis", "2", "--steps", "2",
+          "--valid-every", "2"])
+    (run,) = os.listdir(workdir)
+    run_dir = os.path.join(workdir, run)
+    ckpts = sorted(f for f in os.listdir(run_dir) if f.startswith("ckpt"))
+    assert ckpts == ["ckpt_best.msgpack", "ckpt_best.msgpack.json", "ckpt_latest.msgpack",
+                     "ckpt_latest.msgpack.json"], ckpts
+    with open(os.path.join(run_dir, "ckpt_latest.msgpack.json")) as f:
+        assert json.load(f)["step"] == 2
+    steps = [json.loads(line)["step"] for line in open(os.path.join(run_dir, "metrics.jsonl"))]
+    assert steps == sorted(steps) and len(steps) == len(set(steps))  # one writer
+
+    long_wav = str(tmp_path / "long.wav")
+    n = 17 * 8000  # over the largest bucket (131072 samples): the long-form path
+    a = synth_speaker_wave(201, n_samples=n, sample_rate=8000)
+    b = synth_speaker_wave(202, n_samples=n, sample_rate=8000)
+    write_wav(long_wav, np.asarray(a + b, np.float32), sample_rate=8000)
+    sep_dir = str(tmp_path / "sep")
+    main(["separate", *common, "--run-dir", run_dir, "--wav", long_wav, "--out", sep_dir,
+          "--mesh-devices", "2"])
+    assert sorted(os.listdir(sep_dir)) == ["long_spk0.wav", "long_spk1.wav"]
+
+    with pytest.raises(ValueError, match="asked for 2 devices, have 0"):
+        main(["train", *TINY, "--corpus", corpus, "--device", "cuda", "--workdir",
+              workdir, "--data-axis", "2"])
 
 
 def test_device_flag_in_any_position(monkeypatch):

@@ -39,6 +39,7 @@ from amss_tpu.train.engine import load_model_from_run as j_load  # noqa: E402
 from amss_tpu_torch.infer import long  # noqa: E402
 from amss_tpu_torch.infer.streaming import BucketSpec, StreamingSeparator  # noqa: E402
 from amss_tpu_torch.ops.metrics import si_sdr  # noqa: E402
+from amss_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from amss_tpu_torch.weights import load_model_from_run  # noqa: E402
 
 torch.set_num_threads(2)
@@ -123,9 +124,19 @@ def test_a_short_utterance_is_one_separate_call(models):
     np.testing.assert_array_equal(got, want)
 
 
-def test_separate_long_sharded_raises():
-    with pytest.raises(NotImplementedError, match="item 23"):
-        long.separate_long_sharded(None, np.zeros(10))
+def test_separate_long_sharded_raises(models):
+    """The name is kept from when the sharded path raised: it is ported
+    (``tests/test_torch_parallel.py``).  Over a mesh of two CPU entries with
+    8 chunks a slice, each slice has the batch shape of ``separate_long``'s
+    group, so c1 serves the same chunks to the bit; what raises is a mesh of
+    more cards than there are (none here)."""
+    _, _, tm = models
+    mix = long_mixtures(seconds=(4,), seed0=910)[0][0]
+    want = long.separate_long(tm, mix, chunk=CHUNK)
+    got = long.separate_long_sharded(tm, mix, chunk=CHUNK, mesh=["cpu", "cpu"])
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="asked for 2 devices, have 0"):
+        long.separate_long_sharded(tm, mix, chunk=CHUNK, mesh=make_mesh(2))
 
 
 def test_streaming_separator_serves_over_bucket_utterances(models, monkeypatch):

@@ -26,9 +26,13 @@ from amss_tpu.train.engine import load_model_from_run as j_load_model_from_run
 from amss_tpu.utils.config import run_id as j_run_id
 from amss_tpu_torch.ckpt.checkpoint import msgpack_restore, restore_checkpoint
 from amss_tpu_torch.configs import recipes
+from amss_tpu_torch.data.mixer import Batch
 from amss_tpu_torch.data.store import SpeakerStore
+from amss_tpu_torch.parallel.mesh import run_ranks
 from amss_tpu_torch.train.engine import Trainer
 from amss_tpu_torch.utils.config import recipe_from_dict, run_id, run_id_from_stored
+
+import torch_ranks  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -198,8 +202,32 @@ def test_fit_lowers_the_loss_and_resumes_exactly(store, tmp_path):
 
 
 def test_trainer_raises_without_a_card_and_for_what_is_not_ported(store, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 23"):
-        Trainer(_tiny(recipes, data_axis=2), store, workdir=str(tmp_path), device="cpu")
+    """The name is kept from when data-parallel training raised: it is
+    ported (``tests/test_torch_ddp.py``), and two gloo CPU ranks train here
+    and match one process fed their rows; what still raises is a run
+    without a card when none is named."""
+    dp = _tiny(recipes, data_axis=2, batch_size=4, steps=2, valid_every=2)
+    run_ranks(torch_ranks.fit_rank, 2, "gloo", args=(dp, store.root, str(tmp_path / "dp")))
+    ranks = [torch.load(tmp_path / "dp" / f"rank{r}.pt") for r in range(2)]
+    assert ranks[0]["step"] == ranks[1]["step"] == 2
+    for n, t in ranks[0]["params"].items():
+        assert torch.equal(t, ranks[1]["params"][n]), n
+    one = Trainer(_tiny(recipes, batch_size=4), store, run_dir=str(tmp_path / "one"),
+                  device="cpu")
+    seen = torch_ranks.capture_first_step(one)
+    one.load_state(one.init_state())
+    parts = [one.mixer.batch("train", 0, 2, host=r) for r in range(2)]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # as the ranks compute (tests/torch_ranks.py)
+    try:
+        one._train_step(one._device_batch(Batch(
+            sources=np.concatenate([p.sources for p in parts]),
+            speaker_ids=np.concatenate([p.speaker_ids for p in parts]),
+            gains=np.concatenate([p.gains for p in parts]))))
+    finally:
+        torch.set_num_threads(threads)
+    want = seen["metrics"]["dpcl_loss"]
+    assert abs(ranks[0]["first"]["metrics"]["dpcl_loss"] - want) <= 1e-5 * abs(want)
     # the corpus resident on the card is ported (tests/test_torch_device_corpus.py)
     dd = Trainer(_tiny(recipes, device_data=True), store, workdir=str(tmp_path), device="cpu")
     assert dd.corpus is not None and dd.corpus.device.type == "cpu"
