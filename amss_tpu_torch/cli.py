@@ -589,8 +589,15 @@ def main(argv=None):
                            help="spread the chunks of over-bucket utterances over this "
                                 "many cards (infer/long.py::separate_long_sharded)")
         if name == "profile":
+            p.description = ("Trace --profile-steps train steps into <trace-dir>/trace.json, a "
+                             "Chrome trace of the host and the card's kernels that carries the "
+                             "port's spans (train.step > train.gather, train.forward with "
+                             "front, trunk, head and decode, train.backward, train.optimizer > "
+                             "train.clip; utils/profiling.py), and print the steps' "
+                             "wall-clock statistics.")
             p.add_argument("--profile-steps", type=int, default=20)
-            p.add_argument("--trace-dir", default="amss_trace")
+            p.add_argument("--trace-dir", default="amss_trace",
+                           help="where trace.json goes; the port's spans are among its ranges")
         if name == "sweep":
             p.add_argument("--grid", nargs="+", required=True,
                            help="axes as key=v1,v2 (flag names, e.g. lr=1e-3,3e-4 "

@@ -22,6 +22,14 @@ import torch
 
 from amss_tpu_torch.infer.long import separate_long, separate_long_sharded, warm_long
 from amss_tpu_torch.utils.device import resolve_device, synchronize
+from amss_tpu_torch.utils.profiling import (
+    SERVE_BATCH,
+    SERVE_COPY_OUT,
+    SERVE_JOB,
+    SERVE_PACK,
+    SYNC_END,
+    span,
+)
 
 
 @dataclass
@@ -102,6 +110,10 @@ class StreamingSeparator:
         compute time against the audio time in ``self.meter``.  Utterances
         longer than the largest bucket go first, one ``separate_long`` call
         each (one meter call each)."""
+        with span(SERVE_JOB, utterances=len(waves), audio_samples=sum(len(w) for w in waves)):
+            return self._separate_all(waves, max_batch)
+
+    def _separate_all(self, waves: list[np.ndarray], max_batch: int) -> list[np.ndarray]:
         results: list[np.ndarray | None] = [None] * len(waves)
         max_bucket = self.buckets.lengths[-1]
         long_idx = [i for i in range(len(waves)) if len(waves[i]) > max_bucket]
@@ -120,38 +132,44 @@ class StreamingSeparator:
             self.meter.utterances += 1
             self.meter.calls += 1
 
-        order = sorted((i for i in range(len(waves)) if results[i] is None),
-                       key=lambda i: len(waves[i]))
-        groups: list[list[int]] = []
-        current = None
-        for i in order:
-            bkt = self.buckets.bucket_for(len(waves[i]))
-            if not groups or bkt != current or len(groups[-1]) >= max_batch:
-                groups.append([])
-            current = bkt
-            groups[-1].append(i)
+        with span(SERVE_PACK):
+            order = sorted((i for i in range(len(waves)) if results[i] is None),
+                           key=lambda i: len(waves[i]))
+            groups: list[list[int]] = []
+            current = None
+            for i in order:
+                bkt = self.buckets.bucket_for(len(waves[i]))
+                if not groups or bkt != current or len(groups[-1]) >= max_batch:
+                    groups.append([])
+                current = bkt
+                groups[-1].append(i)
 
-        packed = []
-        for g in groups:
-            bucket = self.buckets.bucket_for(max(len(waves[i]) for i in g))
-            mix = np.zeros((len(g), bucket), np.float32)
-            fmask = np.zeros((len(g), self._frame_count(bucket)), np.float32)
-            for j, i in enumerate(g):
-                mix[j, : len(waves[i])] = waves[i]
-                fmask[j, : self._frame_count(len(waves[i]))] = 1.0
-            packed.append((mix, fmask))
-            self._warm_up(bucket, len(g))
+            packed = []
+            for g in groups:
+                bucket = self.buckets.bucket_for(max(len(waves[i]) for i in g))
+                mix = np.zeros((len(g), bucket), np.float32)
+                fmask = np.zeros((len(g), self._frame_count(bucket)), np.float32)
+                for j, i in enumerate(g):
+                    mix[j, : len(waves[i])] = waves[i]
+                    fmask[j, : self._frame_count(len(waves[i]))] = 1.0
+                packed.append((mix, fmask, sum(len(waves[i]) for i in g)))
+                self._warm_up(bucket, len(g))
 
         t0 = time.perf_counter()
-        outs = [self._run(mix, fmask) for mix, fmask in packed]
+        outs = []
+        for mix, fmask, audio in packed:
+            with span(SERVE_BATCH, rows=mix.shape[0], samples=mix.shape[1], audio_samples=audio):
+                outs.append(self._run(mix, fmask))
         for est, g in zip(outs, groups):
-            est_np = est.cpu().numpy()
-            for j, i in enumerate(g):
-                t_i = len(waves[i])
-                results[i] = est_np[j, :, :t_i]
-                self.meter.audio_seconds += t_i / self.sample_rate
-                self.meter.utterances += 1
-        synchronize(self.device)
+            with span(SERVE_COPY_OUT):
+                est_np = est.cpu().numpy()
+                for j, i in enumerate(g):
+                    t_i = len(waves[i])
+                    results[i] = est_np[j, :, :t_i]
+                    self.meter.audio_seconds += t_i / self.sample_rate
+                    self.meter.utterances += 1
+        with span(SYNC_END):
+            synchronize(self.device)
         self.meter.compute_seconds += time.perf_counter() - t0
         self.meter.calls += len(groups)
         return results  # type: ignore[return-value]

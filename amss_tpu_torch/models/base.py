@@ -35,6 +35,7 @@ from amss_tpu_torch.models.front import (
 )
 from amss_tpu_torch.models.tcn import TCN, tcn_stack
 from amss_tpu_torch.utils.config import ModelConfig
+from amss_tpu_torch.utils.profiling import DECODE, TRUNK, span
 
 _EPS = 1e-8
 
@@ -84,6 +85,11 @@ class SeparatorBase(nn.Module):
               rng: DropoutKey | None = None) -> torch.Tensor:
         """features [B, T', F] -> [B, T', trunk_dim]; ``rng`` is the
         training-time dropout key (None: no dropout)."""
+        with span(TRUNK, device=feats.device):
+            return self._trunk(feats, frame_mask, rng)
+
+    def _trunk(self, feats: torch.Tensor, frame_mask: torch.Tensor | None,
+               rng: DropoutKey | None) -> torch.Tensor:
         sep = self.cfg.sep
         if sep.feature_norm == "cumulative":
             h, _ = cumulative_norm(feats, frame_mask)
@@ -160,6 +166,7 @@ class SeparatorBase(nn.Module):
         """Masked codes per speaker -> waveforms [B, S, T].  Tensors of
         ``aux`` gain the speaker axis; anything else (the adaptive front's
         ``t_frames``) passes through."""
-        masked = torch.movedim(codes[..., None] * masks, -1, 1)  # [B, S, T', F]
-        aux_b = {k: v[:, None] if isinstance(v, torch.Tensor) else v for k, v in aux.items()}
-        return self.front.decode(masked, aux_b, length)
+        with span(DECODE, device=codes.device):
+            masked = torch.movedim(codes[..., None] * masks, -1, 1)  # [B, S, T', F]
+            aux_b = {k: v[:, None] if isinstance(v, torch.Tensor) else v for k, v in aux.items()}
+            return self.front.decode(masked, aux_b, length)

@@ -52,13 +52,15 @@ from torch.nn.utils.rnn import PackedSequence, pack_padded_sequence, pad_packed_
 
 # importing ops/blstm_bf16.py registers the operator amss::blstm_bf16_layer
 from amss_tpu_torch.ops.blstm_bf16 import Bf16Bmm, bf16_mm, bilstm_bf16
+from amss_tpu_torch.utils.profiling import SYNC_LENGTHS, span
 
 
 def prefix_lengths(mask: torch.Tensor) -> torch.Tensor:
     """The valid lengths (int64, on the host) of a prefix mask ``[B, T]``,
     copied to the host once: cuDNN wants them there.  Any other mask is
     refused."""
-    m = mask.to("cpu") > 0
+    with span(SYNC_LENGTHS):
+        m = mask.to("cpu") > 0
     lengths = m.sum(dim=1)
     if not torch.equal(m, torch.arange(m.shape[1])[None, :] < lengths[:, None]):
         raise ValueError("the packed BLSTM takes prefix masks only")

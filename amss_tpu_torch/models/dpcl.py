@@ -15,6 +15,7 @@ from amss_tpu_torch.models.dprnn import DropoutKey
 from amss_tpu_torch.models.front import _one_hot_last, vad_weights
 from amss_tpu_torch.ops.kmeans import kmeans, soft_assignments
 from amss_tpu_torch.utils.config import ModelConfig
+from amss_tpu_torch.utils.profiling import CLUSTER, FRONT, HEAD, span
 
 
 def dpcl_loss(v: torch.Tensor, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -84,9 +85,11 @@ class DPCLModel(SeparatorBase):
 
     def head(self, h: torch.Tensor) -> torch.Tensor:
         """trunk output [B, T', trunk_dim] -> unit embeddings [B, T', F, E]."""
-        v = dense(self.proj, h, self.compute_dtype)
-        v = torch.tanh(v.reshape(*h.shape[:-1], self.cfg.front.feature_dim, self.cfg.sep.embed_dim))
-        return v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + _EPS)
+        with span(HEAD, device=h.device):
+            v = dense(self.proj, h, self.compute_dtype)
+            v = torch.tanh(v.reshape(*h.shape[:-1], self.cfg.front.feature_dim,
+                                     self.cfg.sep.embed_dim))
+            return v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + _EPS)
 
     @torch.no_grad()
     def separate(
@@ -105,17 +108,20 @@ class DPCLModel(SeparatorBase):
         c = self.cfg
         k = n_speakers or c.nb_speakers
         length = mix.shape[-1]
-        codes, aux = self.front.encode(mix)
-        v = self.embed(self.front.features(codes), frame_mask)
+        with span(FRONT, device=mix.device):
+            codes, aux = self.front.encode(mix)
+            feats = self.front.features(codes)
+        v = self.embed(feats, frame_mask)
         b = v.shape[0]
-        w = vad_weights(codes, c.vad_threshold_db)
-        if frame_mask is not None:
-            w = w * frame_mask[..., None]
-        flat_v = v.reshape(b, -1, c.sep.embed_dim)
-        cent, assign = kmeans(flat_v, k=k, iters=kmeans_iters, weights=w.reshape(b, -1))
-        if soft_masks:
-            masks = soft_assignments(flat_v, cent, tau=tau)
-        else:
-            masks = _one_hot_last(assign, k, codes.dtype)
-        masks = masks.reshape(*codes.shape, k)
+        with span(CLUSTER, device=mix.device):
+            w = vad_weights(codes, c.vad_threshold_db)
+            if frame_mask is not None:
+                w = w * frame_mask[..., None]
+            flat_v = v.reshape(b, -1, c.sep.embed_dim)
+            cent, assign = kmeans(flat_v, k=k, iters=kmeans_iters, weights=w.reshape(b, -1))
+            if soft_masks:
+                masks = soft_assignments(flat_v, cent, tau=tau)
+            else:
+                masks = _one_hot_last(assign, k, codes.dtype)
+            masks = masks.reshape(*codes.shape, k)
         return self.apply_masks_and_decode(codes, aux, masks, length)

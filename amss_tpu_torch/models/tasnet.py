@@ -17,6 +17,7 @@ from amss_tpu_torch.models.blstm import dense, init_dense
 from amss_tpu_torch.models.dprnn import DropoutKey
 from amss_tpu_torch.ops.metrics import pit_si_sdr
 from amss_tpu_torch.utils.config import ModelConfig
+from amss_tpu_torch.utils.profiling import FRONT, HEAD, span
 
 
 class TasNetModel(SeparatorBase):
@@ -43,13 +44,15 @@ class TasNetModel(SeparatorBase):
         """features [B, T', F] -> sigmoid masks [B, T', F, S], independent per
         source (the waveform loss, not a sum to one, arbitrates overlap)."""
         h = self.trunk(feats, frame_mask, rng)
-        m = dense(self.proj_mask, h, self.compute_dtype)
-        return torch.sigmoid(m.reshape(*feats.shape, self.cfg.nb_speakers))
+        with span(HEAD, device=h.device):
+            m = dense(self.proj_mask, h, self.compute_dtype)
+            return torch.sigmoid(m.reshape(*feats.shape, self.cfg.nb_speakers))
 
     def _forward(self, mix: torch.Tensor, frame_mask: torch.Tensor | None = None,
                  rng: DropoutKey | None = None) -> torch.Tensor:
-        codes, aux = self.front.encode(mix)
-        feats = self.front.features(codes)
+        with span(FRONT, device=mix.device):
+            codes, aux = self.front.encode(mix)
+            feats = self.front.features(codes)
         m = self.masks(feats, frame_mask, rng)
         return self.apply_masks_and_decode(codes, aux, m, mix.shape[-1])
 

@@ -84,6 +84,16 @@ from amss_tpu_torch.train.optim import Adam, AdamState, make_schedule
 from amss_tpu_torch.utils.config import ModelConfig, RecipeConfig, recipe_to_dict, run_id
 from amss_tpu_torch.utils.device import resolve_device
 from amss_tpu_torch.utils.logging import MetricWriter
+from amss_tpu_torch.utils.profiling import (
+    TRAIN_BACKWARD,
+    TRAIN_DRAW,
+    TRAIN_FORWARD,
+    TRAIN_GATHER,
+    TRAIN_OPTIMIZER,
+    TRAIN_PUT,
+    TRAIN_STEP,
+    span,
+)
 from amss_tpu_torch.weights import jax_tree, load_model_from_run, named_from_jax
 
 _MODELS = {"dpcl": DPCLModel, "adapt_ae": AdaptAutoencoder, "tasnet": TasNetModel,
@@ -268,9 +278,10 @@ class Trainer:
     def _draw(self, split: str, step: int, batch_size: int, host: int = 0):
         """The host's draw of a batch: a ``Plan`` with a device corpus, else
         the audio."""
-        if self.corpus is not None:
-            return self.mixer.plan(split, step, batch_size, host=host)
-        return self.mixer.batch(split, step, batch_size, host=host)
+        with span(TRAIN_DRAW):
+            if self.corpus is not None:
+                return self.mixer.plan(split, step, batch_size, host=host)
+            return self.mixer.batch(split, step, batch_size, host=host)
 
     def _ranks(self) -> tuple[int, int]:
         """(rank, world) of this Trainer; raises unless the process group
@@ -297,17 +308,18 @@ class Trainer:
         """A plan or a host batch on the device, through pinned memory,
         copied without waiting on a card; an L41 host batch also carries its
         speakers' global ids [B, S]."""
-        arrays = self._host_arrays(batch)
-        if self.recipe.model.kind == "l41" and not isinstance(batch, Plan):
-            arrays["speaker_ids"] = batch.speaker_ids
-        out = {}
-        for k, v in arrays.items():
-            t = torch.from_numpy(v)
-            if self.device.type == "cuda":
-                out[k] = t.pin_memory().to(self.device, non_blocking=True)
-            else:
-                out[k] = t.to(self.device)
-        return out
+        with span(TRAIN_PUT):
+            arrays = self._host_arrays(batch)
+            if self.recipe.model.kind == "l41" and not isinstance(batch, Plan):
+                arrays["speaker_ids"] = batch.speaker_ids
+            out = {}
+            for k, v in arrays.items():
+                t = torch.from_numpy(v)
+                if self.device.type == "cuda":
+                    out[k] = t.pin_memory().to(self.device, non_blocking=True)
+                else:
+                    out[k] = t.to(self.device)
+            return out
 
     @staticmethod
     def _dequantize(batch: dict) -> dict:
@@ -361,10 +373,15 @@ class Trainer:
         tensors (nothing here waits for the device).  With ``accum_steps`` >
         1 the gradients and metrics are the means over that many
         microbatches, each with its own dropout key."""
+        with span(TRAIN_STEP, step=self.step):
+            return self._run_step(batch, front_grad_scale)
+
+    def _run_step(self, batch: dict, front_grad_scale: float) -> dict:
         t = self.recipe.train
         key = self.dropout_key(self.step)
         accum = max(t.accum_steps, 1)
-        full = self.prep(batch)
+        with span(TRAIN_GATHER):
+            full = self.prep(batch)
         mb_size = full["sources"].shape[0] // accum
         self.model.train()
         for p in self.params:
@@ -376,8 +393,10 @@ class Trainer:
             if self.group is not None:  # this rank's rows of the global microbatch
                 rank, world = self.group
                 mkey = mkey.shard(rank * mb_size, mb_size, world * mb_size)
-            loss, metrics = self.model.loss_from_batch(mb, rng=mkey)
-            loss.backward()
+            with span(TRAIN_FORWARD, device=self.device):
+                loss, metrics = self.model.loss_from_batch(mb, rng=mkey)
+            with span(TRAIN_BACKWARD, device=self.device):
+                loss.backward()
             for k, v in metrics.items():
                 msum[k] = msum[k] + v.detach() if k in msum else v.detach()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
@@ -390,7 +409,8 @@ class Trainer:
             grads, msum = reduced[: len(grads)], dict(zip(names, reduced[len(grads) :]))
         for i in self._front:
             grads[i] = grads[i] * front_grad_scale
-        self.opt.step(grads)
+        with span(TRAIN_OPTIMIZER, device=self.device):
+            self.opt.step(grads)
         for p in self.params:
             p.grad = None
         if self.ema is not None:

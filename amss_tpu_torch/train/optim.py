@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from amss_tpu_torch.utils.config import TrainConfig
+from amss_tpu_torch.utils.profiling import TRAIN_CLIP, span
 
 _F32 = np.float32
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults; eps_root 0
@@ -108,8 +109,9 @@ class Adam:
         b1, b2 = ADAM_B1, ADAM_B2
         bc1 = float(_F32(1) - _F32(b1) ** _F32(count))
         bc2 = float(_F32(1) - _F32(b2) ** _F32(count))
-        for p, g, mu, nu in zip(self.params, clip_by_global_norm(grads, self.grad_clip),
-                                st.mu, st.nu):
+        with span(TRAIN_CLIP):
+            clipped = clip_by_global_norm(grads, self.grad_clip)
+        for p, g, mu, nu in zip(self.params, clipped, st.mu, st.nu):
             mu.copy_((1 - b1) * g + b1 * mu)
             nu.copy_((1 - b2) * (g * g) + b2 * nu)
             u = (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)

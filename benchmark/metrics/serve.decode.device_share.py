@@ -1,0 +1,12 @@
+"""serve.decode.device_share: the device intervals of the port's ``decode``
+spans inside its ``serve.job`` spans (timing events on the stream at the
+span's start and end: the layer's work and the idle time within it), summed
+over the traced window, as a share of the window (bm/port_spans.py)."""
+
+from bm import port_spans
+
+READS = ("trace",)
+
+
+def read(r):
+    return port_spans.device_share(r, "serve.job", "decode")

@@ -1,0 +1,12 @@
+"""train.idle_share.optimizer: the share of the traced window in which the card
+was idle while the host was inside the port's ``train.optimizer`` span (or a
+span within it), the port's spans put on the trace's clock through the
+harness's ``step`` spans (bm/port_spans.py)."""
+
+from bm import port_spans
+
+READS = ("trace",)
+
+
+def read(r):
+    return port_spans.idle_share(r, lambda names: "train.optimizer" in names)

@@ -1,0 +1,12 @@
+"""train.optimizer.device_share: the device intervals of the port's
+``train.optimizer`` spans (timing events on the stream at the span's start and
+end), summed over the traced window, as a share of the window
+(bm/port_spans.py)."""
+
+from bm import port_spans
+
+READS = ("trace",)
+
+
+def read(r):
+    return port_spans.device_share(r, "train.step", "train.optimizer")
