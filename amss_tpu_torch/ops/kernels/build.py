@@ -33,13 +33,19 @@ FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C entry point -> argument types (pointers and the stream as void*, ints as int)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry point -> argument types (pointers and the stream as void*, ints as
+# int, floats as float)
 SIGNATURES = {
     # x, basis, out, batch, t, win, hop, k, nf, stream
     "amss_framed_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # codes, basis, out, batch, nf, k, win, hop, length, stream
     "amss_decode_ola": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # plan, pointers, partials, tensors, chunks, stream
+    "amss_multi_adam_norm": [_P, _P, _P, _I, _I, _P],
+    # plan, pointers, partials, tensors, chunks, max_norm, 1 - b1, b1, 1 - b2, b2,
+    # 1 / bc1, 1 / bc2, eps, -lr, stream
+    "amss_multi_adam_update": [_P, _P, _P, _I, _I, *[_F] * 9, _P],
 }
 
 

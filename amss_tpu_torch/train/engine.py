@@ -409,7 +409,9 @@ class Trainer:
             grads, msum = reduced[: len(grads)], dict(zip(names, reduced[len(grads) :]))
         for i in self._front:
             grads[i] = grads[i] * front_grad_scale
-        with span(TRAIN_OPTIMIZER, device=self.device):
+        kernel = self.opt.kernel  # None on the CPU
+        with span(TRAIN_OPTIMIZER, device=self.device, tensors=kernel.tensors if kernel else 0,
+                  chunks=kernel.chunks if kernel else 0):
             self.opt.step(grads)
         for p in self.params:
             p.grad = None

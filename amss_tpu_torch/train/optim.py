@@ -6,6 +6,11 @@ Everything a step computes stays on the device: the norm, the clip factor and
 the moments are tensors, and the learning rate and Adam's bias corrections are
 host numbers, computed from the host's step count in float32 as optax computes
 them.  Nothing in ``step`` waits for the device.
+
+The parameters' device picks the path, with no switch: on the CPU a step runs
+the plain version, ``adam_ref`` (a few PyTorch operations a tensor); on CUDA
+it runs the two kernels of ``ops/kernels/multi_adam.py`` over all tensors at
+once, the same arithmetic, and raises for what they do not take.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from amss_tpu_torch.ops.kernels.multi_adam import MultiTensorAdam
 from amss_tpu_torch.utils.config import TrainConfig
 from amss_tpu_torch.utils.profiling import TRAIN_CLIP, span
 
@@ -84,6 +90,29 @@ class AdamState:
     count: int = 0
 
 
+def bias_corrections(count: int) -> tuple[float, float]:
+    """Adam's ``1 - b**count`` for both moments, in float32 as optax computes
+    them."""
+    return (float(_F32(1) - _F32(ADAM_B1) ** _F32(count)),
+            float(_F32(1) - _F32(ADAM_B2) ** _F32(count)))
+
+
+@torch.no_grad()
+def adam_ref(params: list[torch.Tensor], grads: list[torch.Tensor], mu: list[torch.Tensor],
+             nu: list[torch.Tensor], lr: float, bc1: float, bc2: float, max_norm: float) -> None:
+    """The plain version of a step, one tensor at a time, in place: the clip
+    (in the ``train.clip`` span), then Adam with the bias corrections ``bc1``
+    and ``bc2``."""
+    b1, b2 = ADAM_B1, ADAM_B2
+    with span(TRAIN_CLIP):
+        clipped = clip_by_global_norm(grads, max_norm)
+    for p, g, m, v in zip(params, clipped, mu, nu):
+        m.copy_((1 - b1) * g + b1 * m)
+        v.copy_((1 - b2) * (g * g) + b2 * v)
+        u = (m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS)
+        p.add_(u * float(-lr))
+
+
 class Adam:
     """``optax.chain(clip_by_global_norm(grad_clip), adam(schedule))`` over a
     fixed list of parameters, updated in place: b1 0.9, b2 0.999, eps 1e-8,
@@ -94,6 +123,9 @@ class Adam:
         self.schedule = schedule
         self.grad_clip = grad_clip
         self.state = self.init()
+        # the kernel pair over the parameters on CUDA; None on the CPU
+        on_cuda = bool(params) and params[0].device.type == "cuda"
+        self.kernel = MultiTensorAdam(params) if on_cuda else None
 
     def init(self) -> AdamState:
         return AdamState(mu=[torch.zeros_like(p) for p in self.params],
@@ -105,15 +137,10 @@ class Adam:
         st = self.state
         lr = self.schedule(st.count)  # the schedule reads the count before the step
         count = st.count + 1
-        # optax: 1 - decay**count in float32
-        b1, b2 = ADAM_B1, ADAM_B2
-        bc1 = float(_F32(1) - _F32(b1) ** _F32(count))
-        bc2 = float(_F32(1) - _F32(b2) ** _F32(count))
-        with span(TRAIN_CLIP):
-            clipped = clip_by_global_norm(grads, self.grad_clip)
-        for p, g, mu, nu in zip(self.params, clipped, st.mu, st.nu):
-            mu.copy_((1 - b1) * g + b1 * mu)
-            nu.copy_((1 - b2) * (g * g) + b2 * nu)
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
-            p.add_(u * float(-lr))
+        bc1, bc2 = bias_corrections(count)
+        if self.kernel is None:
+            adam_ref(self.params, grads, st.mu, st.nu, lr, bc1, bc2, self.grad_clip)
+        else:
+            self.kernel.step(grads, st.mu, st.nu, max_norm=self.grad_clip, b1=ADAM_B1,
+                             b2=ADAM_B2, eps=ADAM_EPS, lr=lr, bc1=bc1, bc2=bc2)
         st.count = count

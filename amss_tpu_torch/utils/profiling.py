@@ -25,8 +25,9 @@ Serving (``infer/streaming.py``): ``serve.job`` > ``serve.pack``,
 model (``models/``): ``front``, ``trunk``, ``head``, ``cluster``, ``decode``,
 and ``sync.lengths`` where the BLSTM copies its mask to the host.  Training
 (``train/engine.py``): ``train.step`` > ``train.gather``, ``train.forward``,
-``train.backward``, ``train.optimizer`` (> ``train.clip``); ``train.draw``
-and ``train.put`` on the prefetch thread.
+``train.backward``, ``train.optimizer`` (> ``train.clip``; its attributes
+``tensors`` and ``chunks`` say what the kernel pair of the optimizer took, 0
+on the CPU); ``train.draw`` and ``train.put`` on the prefetch thread.
 """
 
 from __future__ import annotations

@@ -184,7 +184,19 @@ Phases, each printing its wall seconds:
    fresh process with no model module on phase 24's protocol: SI-SDRi gated
    as phase 31's, its output against live bf16 serving within
    BF16_ARTIFACT_TOL, B1 and B2 launched as often as phase 24's float32
-   artifact, its RTF beside phase 31's.
+   artifact, its RTF beside phase 31's;
+37. the multi-tensor clip and Adam (``csrc/multi_adam.cu``) on the c6
+   recipe's parameter list and on the benchmark's Conv-TasNet's
+   (``benchmark/configs/convtasnet_luo2019.json``), each against the plain
+   per-tensor version (bit-equal
+   without the clip, and with it given the kernel's norm, which lies within
+   MADAM_NORM_ULPS of the exact one) and a
+   ``torch._foreach_*`` version, the kernel pair's device time against its
+   bound (bytes at 3.35 TB/s) beside both, the host's time a step of all
+   three, and two steps of a c6 ``Trainer`` with no host sync, two launches
+   each and the ``train.optimizer`` span's attributes.  Every training path
+   above counts the pair's launches (``multi_adam``, two a step) beside B1's
+   and B2's, and every serving path none.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero,
@@ -204,12 +216,14 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+CONVTASNET_CONFIG = os.path.join(REPO, "benchmark", "configs", "convtasnet_luo2019.json")
 CKPT = os.path.join(REPO, "checkpoints", "c1_dpcl")
 C2_CKPT = os.path.join(REPO, "checkpoints", "c2_adapt")
 TIME_LIMIT_S = 1150  # the whole run; a hang ends with a traceback and exit 1
@@ -503,6 +517,22 @@ RANK_GRAD_TOL = 1e-5
 # expected
 BF16_ARTIFACT_TOL = 1e-5
 
+# phase 37: the multi-tensor clip and Adam on c6's and Conv-TasNet's
+# parameter lists.  A step that does not clip is bit-equal to the plain
+# version, and so is one that clips when the plain version is given the
+# kernel's norm: only the norm's order of summation differs, and the kernel's
+# norm (float32 partials of 4096 elements, summed in float64) lies within
+# MADAM_NORM_ULPS of the exact one; the torch._foreach_* yardstick sums in its
+# own order, within MADAM_LIBRARY_TOL of each tensor's largest magnitude
+MADAM_MAX_NORM = 5.0
+MADAM_LR = 1e-3
+MADAM_NORM_ULPS = 1
+MADAM_LIBRARY_TOL = 1e-5
+MADAM_BYTES = 28  # read p, g, m, v and write p, m, v: each byte once
+MADAM_DESIGN = ("two launches a step over every tensor: a static chunk table (<= 4096 elements, "
+                "one block each), the norm pass's float32 partials with no atomics, the update "
+                "pass re-summing them in float64 in every block; float4 loads where aligned")
+
 # name -> (source, the TPU kernel it replaces, its design)
 KERNELS = {
     "framed_matmul": ("amss_tpu_torch/csrc/framed_matmul.cu",
@@ -545,18 +575,22 @@ def check(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float
 
 
 def launch_counts() -> dict:
-    """Each kernel wrapper's count of launches."""
+    """Each kernel wrapper's count of launches (the optimizer's pair, two a
+    train step, as ``multi_adam``)."""
     from amss_tpu_torch.ops.kernels.framed_matmul import framed_matmul
+    from amss_tpu_torch.ops.kernels.multi_adam import MultiTensorAdam
     from amss_tpu_torch.ops.kernels.ola import decode_ola
 
-    return {"framed_matmul": framed_matmul.launches, "decode_ola": decode_ola.launches}
+    return {"framed_matmul": framed_matmul.launches, "decode_ola": decode_ola.launches,
+            "multi_adam": MultiTensorAdam.launches}
 
 
 def reset_launches() -> None:
     from amss_tpu_torch.ops.kernels.framed_matmul import framed_matmul
+    from amss_tpu_torch.ops.kernels.multi_adam import MultiTensorAdam
     from amss_tpu_torch.ops.kernels.ola import decode_ola
 
-    framed_matmul.launches = decode_ola.launches = 0
+    framed_matmul.launches = decode_ola.launches = MultiTensorAdam.launches = 0
 
 
 def bound(flops: float, nbytes: float) -> dict:
@@ -960,7 +994,8 @@ def check_kmeans_needs_no_host_sync(gen: torch.Generator) -> None:
 
 def phase_speed(model, per_call: dict | None = None) -> tuple[dict, dict]:
     """Serve phase 3's utterances twice; ``per_call`` is each kernel's
-    launches per batch call (1 each by default)."""
+    launches per batch call (1 each of B1 and B2 by default, and none of the
+    optimizer's pair, as in all serving)."""
     from amss_tpu_torch.infer.streaming import BucketSpec, StreamingSeparator
 
     t = SECONDS * SAMPLE_RATE
@@ -978,7 +1013,7 @@ def phase_speed(model, per_call: dict | None = None) -> tuple[dict, dict]:
     est = sep.separate_all(waves, max_batch=BATCH)
     launches = launch_counts()
 
-    per_call = per_call or {n: 1 for n in launches}
+    per_call = per_call or {"framed_matmul": 1, "decode_ola": 1, "multi_adam": 0}
     for n in launches:
         k = per_call[n]
         if after1[n] != k * (calls + 1) or launches[n] - after1[n] != k * calls:
@@ -1221,7 +1256,7 @@ def phase_train(store, workdir: str) -> tuple[dict, dict]:
     batch0 = tr.mixer.batch("train", 0, t.batch_size)
     step_check = first_step_matches_cpu(tr, state0, batch0)
     per_step = check_train_step_needs_no_host_sync(tr, batch0)
-    if per_step != {"framed_matmul": 2, "decode_ola": 0}:
+    if per_step != {"framed_matmul": 2, "decode_ola": 0, "multi_adam": 2}:
         raise AssertionError(f"a c1 train step launched {per_step}")
     tr.load_state(state0)
     valid0 = tr.valid_loss()
@@ -1231,9 +1266,9 @@ def phase_train(store, workdir: str) -> tuple[dict, dict]:
     n_valid = -(-t.steps // t.valid_every)
     # two STFTs (mixture, sources) per train step and per valid batch; the
     # image summaries of each validation add three (mixture, separate, its
-    # first speaker) and separate's iSTFT one B2
+    # first speaker) and separate's iSTFT one B2; the optimizer's pair a step
     want = {"framed_matmul": 2 * t.steps + 2 * t.valid_steps * n_valid + 3 * n_valid,
-            "decode_ola": n_valid}
+            "decode_ola": n_valid, "multi_adam": 2 * t.steps}
     if launches != want:
         raise AssertionError(f"training launches {launches}, want {want}")
 
@@ -1305,7 +1340,9 @@ def phase_long(model) -> tuple[dict, dict]:
     sep.meter.utterances = sep.meter.calls = 0
     est = sep.separate_all(waves, max_batch=BATCH)
     launches = launch_counts()
-    for n in launches:
+    if launches["multi_adam"]:
+        raise AssertionError(f"long-form serving launched the optimizer: {launches}")
+    for n in KERNELS:
         if after1[n] != calls + warm or launches[n] - after1[n] != calls:
             raise AssertionError(
                 f"{n}: launches {after1[n]} after pass 1 (want {calls} + {warm} warm-up) and "
@@ -1375,7 +1412,7 @@ def phase_train_c2(store, workdir: str) -> tuple[dict, dict]:
     per_step = check_train_step_needs_no_host_sync(pre, batch0)
     # B1 encodes, B2 decodes, and B2's backward runs B1 for the codes'
     # gradient; B1's own backward needs no dx (the waves are data)
-    if per_step != {"framed_matmul": 2, "decode_ola": 1}:
+    if per_step != {"framed_matmul": 2, "decode_ola": 1, "multi_adam": 2}:
         raise AssertionError(f"a c2_pretrain step launched {per_step}")
     pre.load_state(state0)
     valid0 = pre.valid_loss()
@@ -1383,7 +1420,7 @@ def phase_train_c2(store, workdir: str) -> tuple[dict, dict]:
     n_valid = -(-t.steps // t.valid_every)
     # per valid batch B1 + B2; per validation's image one B1 (no separate)
     want = {"framed_matmul": 2 * t.steps + (t.valid_steps + 1) * n_valid,
-            "decode_ola": t.steps + t.valid_steps * n_valid}
+            "decode_ola": t.steps + t.valid_steps * n_valid, "multi_adam": 2 * t.steps}
     if got != want:
         raise AssertionError(f"c2_pretrain launches {got}, want {want}")
     valid = _valid_losses(pre.dir)
@@ -1418,7 +1455,7 @@ def phase_train_c2(store, workdir: str) -> tuple[dict, dict]:
     per_step = check_train_step_needs_no_host_sync(tr, batch0)
     # B1: mixture, sources, and B2's backward (the recon term's codes); B2:
     # the reconstruction of the mixture
-    if per_step != {"framed_matmul": 3, "decode_ola": 1}:
+    if per_step != {"framed_matmul": 3, "decode_ola": 1, "multi_adam": 2}:
         raise AssertionError(f"a c2 step launched {per_step}")
     tr.load_state(state0)
     valid0 = tr.valid_loss()
@@ -1441,7 +1478,7 @@ def phase_train_c2(store, workdir: str) -> tuple[dict, dict]:
     # per valid batch two B1 and one B2; per validation's images three B1
     # (mixture, separate, its first speaker) and one B2 (separate)
     want = {"framed_matmul": 3 * C2_STEPS + (2 * t.valid_steps + 3) * n_valid,
-            "decode_ola": C2_STEPS + (t.valid_steps + 1) * n_valid}
+            "decode_ola": C2_STEPS + (t.valid_steps + 1) * n_valid, "multi_adam": 2 * C2_STEPS}
     if got != want:
         raise AssertionError(f"c2 launches {got}, want {want}")
     valid = _valid_losses(run_dir)
@@ -1534,11 +1571,12 @@ def phase_kernels_c6(gen: torch.Generator) -> dict:
 
 def _gate_launches(cfg) -> dict:
     """Each kernel's launches in one ``separate`` call of a model whose front
-    is ``cfg``: one each where the gate opens the front's (win, hop), else 0."""
+    is ``cfg``: one each of B1 and B2 where the gate opens the front's (win,
+    hop), else 0, and none of the optimizer's pair."""
     from amss_tpu_torch.ops.kernels.framed_matmul import profitable
 
     k = int(profitable(cfg.front.filter_len, cfg.front.stride))
-    return {"framed_matmul": k, "decode_ola": k}
+    return {"framed_matmul": k, "decode_ola": k, "multi_adam": 0}
 
 
 def phase_serve_c6() -> tuple[dict, dict]:
@@ -1632,8 +1670,9 @@ def bf16_step_matches_cpu(store) -> dict:
     if not all(torch.isfinite(g).all() for g in grads_gpu.values()):
         raise AssertionError("bf16 step: non-finite gradients on the card")
     k = _gate_launches(recipe.model)
-    # the forward's B1 and B2, and B2's backward through B1
-    want = {"framed_matmul": 2 * k["framed_matmul"], "decode_ola": k["decode_ola"]}
+    # the forward's B1 and B2, and B2's backward through B1 (no optimizer step)
+    want = {"framed_matmul": 2 * k["framed_matmul"], "decode_ola": k["decode_ola"],
+            "multi_adam": 0}
     if launches != want:
         raise AssertionError(f"bf16 step launched {launches}, want {want}")
     return dict(batch=batch_size, loss_card=loss_gpu, loss_cpu=loss_cpu, loss_diff_db=diff_db,
@@ -1658,7 +1697,8 @@ def phase_train_c6(store, workdir: str) -> tuple[dict, dict]:
     k = _gate_launches(recipe.model)
     # the mixture's B1, the decode's B2 and B2's backward through B1 (the
     # waveform is data: B1's backward needs no dx)
-    want_step = {"framed_matmul": 2 * k["framed_matmul"], "decode_ola": k["decode_ola"]}
+    want_step = {"framed_matmul": 2 * k["framed_matmul"], "decode_ola": k["decode_ola"],
+                 "multi_adam": 2}
     if per_step != want_step:
         raise AssertionError(f"a c6 step launched {per_step}, want {want_step}")
     tr.load_state(state0)
@@ -1669,7 +1709,8 @@ def phase_train_c6(store, workdir: str) -> tuple[dict, dict]:
     # (mixture, separate, its first speaker) and separate's B2
     want = {"framed_matmul": want_step["framed_matmul"] * t.steps
             + k["framed_matmul"] * (t.valid_steps + 3) * n_valid,
-            "decode_ola": k["decode_ola"] * (t.steps + (t.valid_steps + 1) * n_valid)}
+            "decode_ola": k["decode_ola"] * (t.steps + (t.valid_steps + 1) * n_valid),
+            "multi_adam": 2 * t.steps}
     if launches != want:
         raise AssertionError(f"c6 training launches {launches}, want {want}")
     valid = _valid_losses(tr.dir)
@@ -1799,16 +1840,18 @@ def _fit_launches(recipe, steps: int) -> tuple[dict, dict]:
     backward runs B1); a clustering or L41 step encodes the mixture and the
     sources (B1 twice).  Each validation runs ``valid_steps`` loss batches and
     the image summaries (three encodes and one separate's decode), and with
-    ``valid_quality`` one more separate (an encode and a decode)."""
+    ``valid_quality`` one more separate (an encode and a decode).  The
+    optimizer's pair launches twice a step."""
     t = recipe.train
     k = _gate_launches(recipe.model)
     b1, b2 = k["framed_matmul"], k["decode_ola"]
     tasnet = recipe.model.kind == "tasnet"
-    step = {"framed_matmul": 2 * b1, "decode_ola": b2 if tasnet else 0}
-    valid = {"framed_matmul": b1 if tasnet else 2 * b1, "decode_ola": b2 if tasnet else 0}
+    step = {"framed_matmul": 2 * b1, "decode_ola": b2 if tasnet else 0, "multi_adam": 2}
+    valid = {"framed_matmul": b1 if tasnet else 2 * b1, "decode_ola": b2 if tasnet else 0,
+             "multi_adam": 0}
     q = int(t.valid_quality)
     summaries = {"framed_matmul": (3 + q) * b1,
-                 "decode_ola": (1 + q) * b2}
+                 "decode_ola": (1 + q) * b2, "multi_adam": 0}
     n_valid = -(-steps // t.valid_every)
     want = {n: step[n] * steps + (valid[n] * t.valid_steps + summaries[n]) * n_valid
             for n in step}
@@ -1923,7 +1966,7 @@ def phase_c3(store, workdir: str) -> tuple[dict, dict]:
         for i in range(0, len(mixes), BATCH)])
     got = launch_counts()
     calls = -(-len(mixes) // BATCH)
-    if got != {"framed_matmul": calls, "decode_ola": calls}:
+    if got != {"framed_matmul": calls, "decode_ola": calls, "multi_adam": 0}:
         raise AssertionError(f"c3 enrolled launches {got}, want {calls} each")
     launches["c3_enrolled"] = got
     imp = sdr_improvement(torch.from_numpy(est).double(), torch.from_numpy(sources).double(),
@@ -2059,7 +2102,7 @@ def phase_count() -> tuple[dict, dict]:
     card = {k: counts(model, mixes[:COUNT_N], "cuda") for k, (mixes, _) in data.items()}
     launches = {"count": launch_counts()}
     calls = 3 * -(-COUNT_N // BATCH)
-    if launches["count"] != {"framed_matmul": calls, "decode_ola": 0}:
+    if launches["count"] != {"framed_matmul": calls, "decode_ola": 0, "multi_adam": 0}:
         raise AssertionError(f"counting launched {launches['count']}, want B1 {calls} times")
     t0 = time.perf_counter()
     host = {k: counts(cpu, mixes[:COUNT_N], "cpu") for k, (mixes, _) in data.items()}
@@ -2089,7 +2132,7 @@ def phase_count() -> tuple[dict, dict]:
     launches["auto_k"] = launch_counts()
     groups = [ks.count(k) for k in sorted(set(ks))]
     want = {"framed_matmul": len(waves) + sum(map(_separator_calls, groups)),
-            "decode_ola": sum(map(_separator_calls, groups))}
+            "decode_ola": sum(map(_separator_calls, groups)), "multi_adam": 0}
     if launches["auto_k"] != want:
         raise AssertionError(f"auto-k launched {launches['auto_k']}, want {want}")
     autok = {}
@@ -2174,7 +2217,7 @@ def phase_enh(store, workdir: str, base_quality: dict) -> tuple[dict, dict]:
     step_check = first_step_matches_cpu(tr, state0, batch0, prepare=one_first_pass)
     tr.model._frozen[0] = base
     per_step = check_train_step_needs_no_host_sync(tr, batch0)
-    if per_step != {"framed_matmul": 4, "decode_ola": 1}:
+    if per_step != {"framed_matmul": 4, "decode_ola": 1, "multi_adam": 2}:
         raise AssertionError(f"an enh step launched {per_step}: want B1 4 times (the base's "
                              "encode, the mixture, the estimates, the sources) and B2 once")
 
@@ -2195,7 +2238,7 @@ def phase_enh(store, workdir: str, base_quality: dict) -> tuple[dict, dict]:
     # a validation: valid_steps loss batches, and the image summaries (the
     # mixture's encode, a two-stage separate, its first speaker's encode)
     want = {"framed_matmul": 4 * t.steps + (4 * t.valid_steps + 5) * n_valid,
-            "decode_ola": t.steps + (t.valid_steps + 2) * n_valid}
+            "decode_ola": t.steps + (t.valid_steps + 2) * n_valid, "multi_adam": 2 * t.steps}
     if launches != want:
         raise AssertionError(f"enh training launches {launches}, want {want}")
     valid = _valid_losses(tr.dir)
@@ -2216,7 +2259,7 @@ def phase_enh(store, workdir: str, base_quality: dict) -> tuple[dict, dict]:
     q = phase_quality(model)
     got = launch_counts()
     calls = -(-QUALITY_N // BATCH) + 1
-    if got != {"framed_matmul": 3 * calls, "decode_ola": 2 * calls}:
+    if got != {"framed_matmul": 3 * calls, "decode_ola": 2 * calls, "multi_adam": 0}:
         raise AssertionError(f"enh serving launched {got}, want 3 x {calls} and 2 x {calls}")
     out_launches = {"enh_train": launches, "enh_serve": got}
     say(f"  enh after {t.steps} steps, served ({QUALITY_N} mixtures, batch {BATCH}): si_sdri "
@@ -3190,7 +3233,8 @@ def phase_train_flagship(store, workdir: str) -> tuple[dict, dict]:
         raise AssertionError(f"device-data loss {loss_dev} against host-data {loss_host}")
     per_step = check_train_step_needs_no_host_sync(tr, plan0)
     k = _gate_launches(recipe.model)
-    want_step = {"framed_matmul": 2 * k["framed_matmul"], "decode_ola": k["decode_ola"]}
+    want_step = {"framed_matmul": 2 * k["framed_matmul"], "decode_ola": k["decode_ola"],
+                 "multi_adam": 2}
     if per_step != want_step:
         raise AssertionError(f"a flagship step launched {per_step}, want {want_step}")
     tr.load_state(state0)
@@ -3199,7 +3243,8 @@ def phase_train_flagship(store, workdir: str) -> tuple[dict, dict]:
     n_valid = -(-t.steps // t.valid_every)
     want = {"framed_matmul": want_step["framed_matmul"] * t.steps
             + k["framed_matmul"] * (t.valid_steps + 3) * n_valid,
-            "decode_ola": k["decode_ola"] * (t.steps + (t.valid_steps + 1) * n_valid)}
+            "decode_ola": k["decode_ola"] * (t.steps + (t.valid_steps + 1) * n_valid),
+            "multi_adam": 2 * t.steps}
     if launches != want:
         raise AssertionError(f"flagship training launches {launches}, want {want}")
     valid = _valid_losses(tr.dir)
@@ -3331,7 +3376,7 @@ def phase_c1_bf16(store, workdir: str, speed_f32: dict) -> tuple[dict, dict]:
     _, launches32, fit32_s, _ = _fit_counted(tr32, tr32.init_state())
     n_valid = -(-t.steps // t.valid_every)
     want = {"framed_matmul": 2 * t.steps + 2 * t.valid_steps * n_valid + 3 * n_valid,
-            "decode_ola": n_valid}
+            "decode_ola": n_valid, "multi_adam": 2 * t.steps}
     if not launches == launches32 == want:
         raise AssertionError(f"bf16 c1 fit launched {launches}, float32 {launches32}, "
                              f"want {want}")
@@ -3357,7 +3402,7 @@ def phase_c1_bf16(store, workdir: str, speed_f32: dict) -> tuple[dict, dict]:
     q = phase_quality(model)
     q_launches = launch_counts()
     calls = -(-QUALITY_N // BATCH) + 1
-    if q_launches != {"framed_matmul": calls, "decode_ola": calls}:
+    if q_launches != {"framed_matmul": calls, "decode_ola": calls, "multi_adam": 0}:
         raise AssertionError(f"bf16 quality launched {q_launches}, want {calls} each")
     say(f"  c1_dpcl served in bf16 (64 x 8 s, batch 8): rtf {speed['rtf_pass2']:.6f} (float32, "
         f"phase 3: {speed_f32['rtf_pass2']:.6f}), launches {serve_launches}; quality si_sdri "
@@ -3429,7 +3474,7 @@ def phase_sharded_stft(gen: torch.Generator) -> tuple[dict, dict]:
     re, im = sharded_stft_ri(x, win, hop, mesh)
     torch.cuda.synchronize()
     launches = launch_counts()
-    if launches != {"framed_matmul": len(mesh), "decode_ola": 0}:
+    if launches != {"framed_matmul": len(mesh), "decode_ola": 0, "multi_adam": 0}:
         raise AssertionError(f"the sharded STFT launched {launches}, want B1 once a shard")
     want_re, want_im = stft.stft_ri(x, win, hop)
     err = max(check("sharded STFT re", re, want_re, SHARD_STFT_TOL),
@@ -3489,7 +3534,9 @@ def phase_long_sharded(model, long_form: dict) -> tuple[dict, dict]:
         launches = launch_counts()
     finally:
         blstm.prefix_lengths = prefix
-    for n in launches:
+    if launches["multi_adam"]:
+        raise AssertionError(f"long-form serving over the mesh launched the optimizer: {launches}")
+    for n in KERNELS:
         if launches[n] - after1[n] != calls:
             raise AssertionError(f"{n}: {launches[n] - after1[n]} launches in pass 2 over the "
                                  f"mesh, want {calls}")
@@ -3775,6 +3822,208 @@ def phase_artifact_bf16(kept: dict, workdir: str, artifact_launches: dict,
     return out, p2["launches"]
 
 
+def _ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest difference in ulps of ``want``'s largest magnitude."""
+    got, want = got.detach(), want.detach()
+    top = float(want.abs().max())
+    if top == 0.0:
+        return 0.0 if torch.equal(got, want) else float("inf")
+    return float((got - want).abs().max()) / float(np.spacing(np.float32(top)))
+
+
+def foreach_adam(params, grads, mu, nu, lr: float, bc1: float, bc2: float,
+                 max_norm: float) -> None:
+    """The clip and Adam in ``torch._foreach_*`` operations: phase 37's
+    library yardstick (the port never calls it)."""
+    from amss_tpu_torch.train.optim import ADAM_B1, ADAM_B2, ADAM_EPS
+
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    g = torch._foreach_mul(grads, scale)
+    torch._foreach_mul_(mu, ADAM_B1)
+    torch._foreach_add_(mu, g, alpha=1 - ADAM_B1)
+    torch._foreach_mul_(nu, ADAM_B2)
+    torch._foreach_addcmul_(nu, g, g, value=1 - ADAM_B2)
+    den = torch._foreach_div(nu, bc2)
+    torch._foreach_sqrt_(den)
+    torch._foreach_add_(den, ADAM_EPS)
+    torch._foreach_addcdiv_(params, torch._foreach_div(mu, bc1), den, value=-float(lr))
+
+
+def convtasnet_luo2019():
+    """The port's ``ModelConfig`` of the benchmark's Conv-TasNet configuration
+    (the ``port`` entry of ``benchmark/configs/convtasnet_luo2019.json``)."""
+    from amss_tpu_torch.utils.config import FrontConfig, ModelConfig, SeparatorConfig
+
+    with open(CONVTASNET_CONFIG) as f:
+        p = json.load(f)["port"]
+    return ModelConfig(front=FrontConfig(**p.pop("front")), sep=SeparatorConfig(**p.pop("sep")),
+                       **p)
+
+
+def _multi_adam_list(what: str, cfg, gen: torch.Generator) -> dict:
+    """Phase 37 on the trainable parameters of ``cfg``: the kernel pair
+    against the plain version and the ``torch._foreach_*`` yardstick from one
+    state (a step without the clip, one with it), then the pair's device time
+    against its bound (bytes) and the three paths' device and host times."""
+    from amss_tpu_torch.ops.kernels.build import check_launch, load_library
+    from amss_tpu_torch.train import optim
+    from amss_tpu_torch.train.engine import make_model
+    from amss_tpu_torch.train.optim import (
+        ADAM_B1, ADAM_B2, ADAM_EPS, Adam, adam_ref, bias_corrections, constant_schedule,
+        global_norm)
+    from amss_tpu_torch.utils.timing import time_ms
+
+    dev = torch.device("cuda")
+    params = [p for p in make_model(cfg).to(dev).parameters() if p.requires_grad]
+    n = sum(p.numel() for p in params)
+
+    def state() -> dict:
+        return {"p": [p.detach().clone() for p in params],
+                "m": [torch.zeros_like(p) for p in params],
+                "v": [torch.zeros_like(p) for p in params]}
+
+    def grads_of_norm(norm: float) -> list:
+        g = [torch.randn(p.shape, generator=gen, device=dev) for p in params]
+        s = norm / float(global_norm(g))
+        return [x * s for x in g]
+
+    opt = Adam(params, constant_schedule(MADAM_LR), MADAM_MAX_NORM)
+    plain, own, lib = state(), state(), state()
+    agree = {}
+    for count, (case, target) in enumerate((("no_clip", 0.5 * MADAM_MAX_NORM),
+                                            ("clip", 3.0 * MADAM_MAX_NORM)), start=1):
+        grads = grads_of_norm(target)
+        bc1, bc2 = bias_corrections(count)
+        opt.step(grads)
+        norm = opt.kernel.norm
+        # the plain version given the kernel's norm (bit for bit), and with its own
+        with mock.patch.object(optim, "global_norm", lambda tensors: norm):
+            adam_ref(plain["p"], grads, plain["m"], plain["v"], MADAM_LR, bc1, bc2,
+                     MADAM_MAX_NORM)
+        adam_ref(own["p"], grads, own["m"], own["v"], MADAM_LR, bc1, bc2, MADAM_MAX_NORM)
+        foreach_adam(lib["p"], grads, lib["m"], lib["v"], MADAM_LR, bc1, bc2, MADAM_MAX_NORM)
+        torch.cuda.synchronize()
+        exact = float(torch.sqrt(sum((g.double() ** 2).sum() for g in grads)))
+        ours = {"p": params, "m": opt.state.mu, "v": opt.state.nu}
+
+        def pairs(other):
+            return [(a, b) for k in "pmv" for a, b in zip(ours[k], other[k])]
+
+        agree[case] = dict(
+            equal_given_norm=all(torch.equal(a, b) for a, b in pairs(plain)),
+            kernel_ulps=max(_ulps(a, b) for a, b in pairs(own)),
+            kernel_max_abs_err=max(max_err(a.detach(), b) for a, b in pairs(own)),
+            norm=float(norm), norm_ulps=_ulps(norm, global_norm(grads)),
+            norm_exact_ulps=abs(float(norm) - exact) / float(np.spacing(np.float32(exact))),
+            library_rel_err=max(max_err(b, a.detach()) / max(float(a.detach().abs().max()), 1e-30)
+                                for a, b in zip([*params, *opt.state.mu, *opt.state.nu],
+                                                [*lib["p"], *lib["m"], *lib["v"]])))
+        a = agree[case]
+        say(f"  {what} step {count} ({case}, global norm {a['norm']:.7g}, "
+            f"{a['norm_exact_ulps']:.3f} ulp from the exact one; the plain version's "
+            f"{a['norm_ulps']:g} ulp from it): kernel against the plain version "
+            f"{a['kernel_ulps']:g} ulp at most (max abs {a['kernel_max_abs_err']:.3e}), "
+            f"bit-equal given the kernel's norm {a['equal_given_norm']}; foreach "
+            f"{a['library_rel_err']:.3e} of the peak")
+    if not all(a["equal_given_norm"] for a in agree.values()):
+        raise AssertionError(f"{what}: the plain version given the kernel's norm differs: {agree}")
+    if agree["no_clip"]["kernel_ulps"] != 0:
+        raise AssertionError(f"{what}: a step without the clip is not bit-equal: "
+                             f"{agree['no_clip']}")
+    if not max(a["norm_exact_ulps"] for a in agree.values()) <= MADAM_NORM_ULPS:
+        raise AssertionError(f"{what}: the kernel's norm: {agree} (tol {MADAM_NORM_ULPS} ulp of "
+                             f"the exact one)")
+    if not max(a["library_rel_err"] for a in agree.values()) <= MADAM_LIBRARY_TOL:
+        raise AssertionError(f"{what}: the foreach yardstick disagrees: {agree}")
+
+    # device times (CUDA graphs: the host's launching left out), then host times
+    grads = grads_of_norm(3.0 * MADAM_MAX_NORM)
+    bc1, bc2 = bias_corrections(3)
+    kernel = opt.kernel
+    ptrs = kernel._pointers(grads, opt.state.mu, opt.state.nu)
+    partials = torch.empty(kernel.chunks + 1, dtype=torch.float32, device=dev)
+    numbers = dict(max_norm=MADAM_MAX_NORM, b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS, lr=MADAM_LR,
+                   bc1=bc1, bc2=bc2)
+    clib = load_library()
+
+    def norm_pass():
+        check_launch(clib, "multi_adam norm", clib.amss_multi_adam_norm(
+            kernel.plan.data_ptr(), ptrs.data_ptr(), partials.data_ptr(), len(params),
+            kernel.chunks, torch.cuda.current_stream().cuda_stream))
+
+    def plain_step():
+        adam_ref(plain["p"], grads, plain["m"], plain["v"], MADAM_LR, bc1, bc2, MADAM_MAX_NORM)
+
+    def lib_step():
+        foreach_adam(lib["p"], grads, lib["m"], lib["v"], MADAM_LR, bc1, bc2, MADAM_MAX_NORM)
+
+    nbytes = MADAM_BYTES * n
+    out = dict(tensors=kernel.tensors, chunks=kernel.chunks, elements=n,
+               ms=time_ms(lambda: kernel.launch(ptrs, **numbers)), norm_ms=time_ms(norm_pass),
+               plain_ms=time_ms(plain_step, calls=2), library_ms=time_ms(lib_step, calls=5),
+               bound_ms=nbytes / PEAK_HBM_BYTES * 1e3, bound_by="bytes", bytes=nbytes,
+               host_ms={"kernel": _host_ms(lambda: opt.step(grads)),
+                        "plain": _host_ms(plain_step), "library": _host_ms(lib_step)},
+               agree=agree, norm_ulps_tol=MADAM_NORM_ULPS, library_tol=MADAM_LIBRARY_TOL)
+    out["roofline_share"] = out["bound_ms"] / out["ms"]
+    say(f"  {what}'s {out['tensors']} tensors, {n} elements, {out['chunks']} chunks: kernel "
+        f"pair {out['ms']:.4f} ms (norm pass {out['norm_ms']:.4f}), bound "
+        f"{out['bound_ms'] * 1e3:.2f} us ({MADAM_BYTES} B an element), plain "
+        f"{out['plain_ms']:.4f} ms, foreach {out['library_ms']:.4f} ms; host clock a step: "
+        f"{out['host_ms']}")
+    return out
+
+
+def phase_multi_adam(workdir: str) -> dict:
+    """The multi-tensor clip and Adam on c6's parameter list and on the
+    benchmark's Conv-TasNet's (``_multi_adam_list``; c6's at the top level),
+    and two steps of a c6 Trainer with no host sync, two launches each and
+    the ``train.optimizer`` span's attributes."""
+    from amss_tpu_torch.configs.recipes import c6_tasnet
+    from amss_tpu_torch.train.engine import Trainer
+    from amss_tpu_torch.utils import profiling
+
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    out = _multi_adam_list("c6", c6_tasnet().model, gen)
+    out["convtasnet_luo2019"] = _multi_adam_list("convtasnet_luo2019", convtasnet_luo2019(), gen)
+
+    # a Trainer's steps: two launches each, no host sync, the span's attributes
+    store = training_corpus(workdir)
+    tr = Trainer(c6_tasnet(steps=4, valid_every=4), store, workdir=os.path.join(workdir, "runs"))
+    tr.load_state(tr.init_state())
+    batch = tr._device_batch(tr.mixer.batch("train", 0, tr.recipe.train.batch_size))
+    torch.cuda.synchronize()
+    before = launch_counts()["multi_adam"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with profiling.recording():
+            for _ in range(2):
+                tr._train_step(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    kept = profiling.spans()
+    launched = launch_counts()["multi_adam"] - before
+    spans = {name: [r for r in kept if r.name == name]
+             for name in ("train.optimizer", "train.clip")}
+    want = {"tensors": len(tr.params), "chunks": tr.opt.kernel.chunks}
+    if launched != 4:
+        raise AssertionError(f"two c6 train steps launched the kernel pair {launched} times")
+    if len(spans["train.optimizer"]) != 2 or any(
+            {k: r.attrs.get(k) for k in want} != want for r in spans["train.optimizer"]):
+        raise AssertionError(f"train.optimizer spans {[r.attrs for r in spans['train.optimizer']]}"
+                             f", want attributes {want}")
+    parents = {r.id for r in spans["train.optimizer"]}
+    if len(spans["train.clip"]) != 2 or any(r.parent not in parents for r in spans["train.clip"]):
+        raise AssertionError("train.clip is not inside train.optimizer")
+    out["trainer"] = dict(launches_per_step=launched / 2, span_attrs=want,
+                          optimizer_device_ms=[r.device_ms for r in spans["train.optimizer"]])
+    say(f"  c6 Trainer: two steps with no host sync, {launched // 2} launches a step, "
+        f"train.optimizer {want}, its stream time {out['trainer']['optimizer_device_ms']} ms")
+    return out
+
+
 def main() -> None:
     faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
     t_start = time.perf_counter()
@@ -3804,6 +4053,9 @@ def main() -> None:
         say(f"  {name}: {compiled[name]}")
         if compiled[name]["HMMA"] + compiled[name]["HGMMA"] == 0:
             raise AssertionError(f"{name}: no tensor-core instruction in its machine code")
+    for name in ("multi_adam_norm", "multi_adam_update"):
+        compiled[name] = kernel_facts(ptxas, sass, f"{name}_kernel")
+        say(f"  {name}: {compiled[name]}")
     say(f"phase 1 build: build_s {build_s:.2f} (wall {time.perf_counter() - t0:.2f} s)")
 
     t0 = time.perf_counter()
@@ -4059,6 +4311,11 @@ def main() -> None:
             kept, workdir, artifact_launches, c1_bf16["serving"]["rtf_pass2"])
         say(f"phase 36 bf16 c1 artifact: {time.perf_counter() - t0:.2f} s")
 
+    with tempfile.TemporaryDirectory(prefix="amss_adam_") as workdir:
+        t0 = time.perf_counter()
+        madam = phase_multi_adam(workdir)
+        say(f"phase 37 multi-tensor clip and Adam: {time.perf_counter() - t0:.2f} s")
+
     per_path = {"c1_serve": launches, "c1_train": train_launches, "c2_serve": launches_c2,
                 **train_c2_launches, "long_form": long_launches, **serve_c6_launches,
                 **train_c6_launches, "c7_realtime": realtime_launches, **c7_launches,
@@ -4105,6 +4362,20 @@ def main() -> None:
             record[-1]["c4"] = {key: c4_b2[key] for key in (
                 "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err",
                 "tol", "grad_rel_err", "grad_tol")}
+    record.append({
+        "name": "multi_adam", "route": "cuda", "source": "amss_tpu_torch/csrc/multi_adam.cu",
+        "replaces": None, "design": MADAM_DESIGN,
+        **{key: madam[key] for key in ("tensors", "chunks", "elements", "ms", "norm_ms",
+                                      "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                      "roofline_share", "host_ms", "agree")},
+        "launches_per_step": madam["trainer"]["launches_per_step"],
+        # the exported programs' processes count B1 and B2 alone: serving, so 0
+        "launches_per_path": {p: n.get("multi_adam", 0) for p, n in per_path.items()},
+        "convtasnet_luo2019": {key: madam["convtasnet_luo2019"][key] for key in (
+            "tensors", "chunks", "elements", "ms", "norm_ms", "plain_ms", "library_ms",
+            "bound_ms", "roofline_share", "host_ms", "agree")},
+        "kernels": {k: compiled[k] for k in ("multi_adam_norm", "multi_adam_update")},
+    })
     say(json.dumps({"main_path": speed, "quality": quality, "training": train,
                     "c2_serving": speed_c2, "c2_quality": quality_c2, "c2_training": train_c2,
                     "long_form": long_form, "c6_serving": serve_c6, "c6_training": train_c6,
@@ -4118,6 +4389,7 @@ def main() -> None:
                     "c6_flagship_device_training": flagship, "c1_bf16": c1_bf16,
                     "bf16_dprnn_enh": bf16_more, "sharded_stft": sharded_stft,
                     "long_form_mesh": long_mesh, "ranks": ranks, "c1_bf16_artifact": bf16_artifact,
+                    "multi_adam": madam,
                     "card": card,
                     "total_s": time.perf_counter() - t_start}))
     say(card)

@@ -64,18 +64,20 @@ def test_ptxas_report_and_sass_counts_are_read_per_function(monkeypatch):
 
 def test_fit_launches_count_the_quality_summary():
     """A validation runs its loss batches (two B1 each), the image summaries
-    (three B1, one B2) and, with valid_quality, one separate (a B1, a B2)."""
+    (three B1, one B2) and, with valid_quality, one separate (a B1, a B2); a
+    train step also launches the optimizer's pair, a validation never."""
     import dataclasses
 
     from amss_tpu_torch.configs.recipes import c1_stft_dpcl
 
     r = c1_stft_dpcl(steps=200, valid_every=50)
     step, want = chip_smoke._fit_launches(r, 200)
-    assert step == {"framed_matmul": 2, "decode_ola": 0}
-    assert want == {"framed_matmul": 400 + 4 * (2 * r.train.valid_steps + 3), "decode_ola": 4}
+    assert step == {"framed_matmul": 2, "decode_ola": 0, "multi_adam": 2}
+    assert want == {"framed_matmul": 400 + 4 * (2 * r.train.valid_steps + 3), "decode_ola": 4,
+                    "multi_adam": 400}
     quality = dataclasses.replace(r, train=dataclasses.replace(r.train, valid_quality=True))
     assert chip_smoke._fit_launches(quality, 200) == (
-        step, {"framed_matmul": want["framed_matmul"] + 4, "decode_ola": 8})
+        step, {"framed_matmul": want["framed_matmul"] + 4, "decode_ola": 8, "multi_adam": 400})
 
 
 def test_rows_against_live_name_the_seeding_tie_and_refuse_the_rest():
@@ -93,3 +95,27 @@ def test_rows_against_live_name_the_seeding_tie_and_refuse_the_rest():
     emb_err[1] = 10 * chip_smoke.EMBED_TOL
     with pytest.raises(AssertionError, match=r"rows \[1\] differ"):
         chip_smoke._rows_against_live("rows", got, live, emb_err)
+
+
+@pytest.mark.parametrize("scale", [0.3, 4.0])  # below and above the clip
+def test_foreach_yardstick_is_the_plain_step(scale):
+    """Phase 37's ``torch._foreach_*`` yardstick computes the plain version's
+    step (in its own order of operations) on either side of the clip."""
+    from amss_tpu_torch.train.optim import adam_ref, bias_corrections, global_norm
+
+    gen = torch.Generator().manual_seed(3)
+    init = [torch.randn(s, generator=gen) for s in ((5, 3), (7,), (2, 2, 4))]
+    ref = [p.clone() for p in init]
+    lib = [p.clone() for p in init]
+    mr, vr = [torch.zeros_like(p) for p in init], [torch.zeros_like(p) for p in init]
+    ml, vl = [torch.zeros_like(p) for p in init], [torch.zeros_like(p) for p in init]
+    for count in (1, 2, 3):
+        grads = [torch.randn(p.shape, generator=gen) * scale for p in init]
+        assert (float(global_norm(grads)) >= 5.0) == (scale > 1)
+        bc1, bc2 = bias_corrections(count)
+        adam_ref(ref, grads, mr, vr, 1e-3, bc1, bc2, 5.0)
+        chip_smoke.foreach_adam(lib, grads, ml, vl, 1e-3, bc1, bc2, 5.0)
+    for ours, theirs in ((lib, ref), (ml, mr), (vl, vr)):
+        for a, b in zip(ours, theirs):
+            assert chip_smoke._ulps(a, b) <= 64
+            assert float((a - b).abs().max()) <= chip_smoke.MADAM_LIBRARY_TOL * float(b.abs().max())
