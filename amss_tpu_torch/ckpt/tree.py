@@ -36,17 +36,20 @@ def lstm_state(layers) -> dict:
 
 
 def _flatten(tree, prefix: str) -> dict:
-    """Named tensors of a JAX subtree: a dense ``{w, b}`` becomes ``weight =
-    wᵀ`` and ``bias``, a list's entries are named by their index, every other
-    key keeps its name."""
+    """Named tensors of a JAX subtree: a dense ``{w, b}`` (or a bias-free
+    ``{w}``) becomes ``weight = wᵀ`` and ``bias``, a list's entries are named
+    by their index, every other key keeps its name."""
     if isinstance(tree, (list, tuple)):
         tree = {str(i): v for i, v in enumerate(tree)}
     if not isinstance(tree, dict):
         return {prefix[:-1]: _t(tree)}
     if set(tree) == {"fwd", "bwd"}:  # one BLSTM layer of a dual-path block
         return {f"{prefix}lstm.{k}": v for k, v in lstm_state([tree]).items()}
-    if set(tree) == {"w", "b"}:
-        return {prefix + "weight": _t(tree["w"]).T, prefix + "bias": _t(tree["b"])}
+    if set(tree) in ({"w", "b"}, {"w"}):  # a dense, with or without its bias
+        out = {prefix + "weight": _t(tree["w"]).T}
+        if "b" in tree:
+            out[prefix + "bias"] = _t(tree["b"])
+        return out
     out = {}
     for k, v in tree.items():
         out.update(_flatten(v, f"{prefix}{k}."))

@@ -155,6 +155,29 @@ def c6_dual_path(trunk: str, **over) -> RecipeConfig:
         r.model, sep=dataclasses.replace(r.model.sep, **sep)))
 
 
+def sepformer(**over) -> RecipeConfig:
+    """SepFormer at its published widths (``models/sepformer.py``; SpeechBrain's
+    ``recipes/WSJ0Mix/separation/hparams/sepformer.yaml``): the conv front of
+    256 filters of 16 taps at stride 8, chunks of 250 frames at hop 125, 2
+    repeats of an intra and an inter stack of 8 pre-LN layers of width 256, 8
+    heads and a feed-forward of 1024, two speakers; trained as released, batch
+    1, Adam at 1.5e-4, clip 5, here on chunks of 4 s.  It is no recipe of the
+    JAX package, so not in ``ALL_RECIPES``.  Keyword overrides go to
+    ``TrainConfig``."""
+    return RecipeConfig(
+        name="sepformer",
+        model=ModelConfig(
+            kind="sepformer",
+            front=FrontConfig(kind="conv", n_filters=256, filter_len=16, stride=8, pool=1),
+            sep=SeparatorConfig(hidden=256, trunk="sepformer", chunk_frames=250, heads=8,
+                                blocks=8, repeats=2, expansion=4, dropout=0.0),
+            nb_speakers=2,
+        ),
+        train=TrainConfig(**{"batch_size": 1, "chunk_samples": 32000, "lr": 1.5e-4,
+                             "grad_clip": 5.0, **over}),
+    )
+
+
 # The CLI's recipe names, the JAX package's (``amss_tpu/configs/recipes.py``).
 ALL_RECIPES = {
     "c1": c1_stft_dpcl,

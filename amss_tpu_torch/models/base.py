@@ -46,14 +46,18 @@ class SeparatorBase(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        sep = cfg.sep
-        if sep.trunk not in ("blstm", "tcn", "dprnn", "dpt"):
-            raise ValueError(f"unknown trunk {sep.trunk!r}")
-        if sep.compute_dtype not in ("float32", "bfloat16"):
-            raise ValueError(f"unknown compute_dtype {sep.compute_dtype!r}")
+        if cfg.sep.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown compute_dtype {cfg.sep.compute_dtype!r}")
         self.cfg = cfg
         self.front = make_front(cfg.front)
-        f = cfg.front.feature_dim
+        self._build_trunk(cfg.sep, cfg.front.feature_dim)
+
+    def _build_trunk(self, sep, f: int) -> None:
+        """The trunk's module of ``sep.trunk`` over ``f`` features, under the
+        trunk's name (a model whose separator is no trunk and head, as
+        SepFormer's masker, builds its own here)."""
+        if sep.trunk not in ("blstm", "tcn", "dprnn", "dpt"):
+            raise ValueError(f"unknown trunk {sep.trunk!r}")
         if sep.trunk == "tcn":
             self.tcn = TCN(f, bottleneck=sep.hidden, hidden=sep.expansion * sep.hidden,
                            blocks=sep.blocks, repeats=sep.repeats, kernel=sep.kernel)

@@ -328,12 +328,14 @@ class _Bf16Dense(torch.autograd.Function):
 @torch.no_grad()
 def init_dense(layer: nn.Linear, generator: torch.Generator, scale: float | None = None) -> None:
     """``_init_dense``'s distribution: w ``[in, out]`` uniform in ±scale
-    (1/√in by default), drawn in that layout from ``generator``; bias 0."""
+    (1/√in by default), drawn in that layout from ``generator``; bias 0
+    where the layer has one."""
     n_in = layer.in_features
     scale = 1.0 / math.sqrt(n_in) if scale is None else scale
     w = torch.empty(n_in, layer.out_features).uniform_(-scale, scale, generator=generator)
     layer.weight.copy_(w.T)
-    layer.bias.zero_()
+    if layer.bias is not None:
+        layer.bias.zero_()
 
 
 def dense(layer: nn.Linear, x: torch.Tensor, compute_dtype: torch.dtype = torch.float32):

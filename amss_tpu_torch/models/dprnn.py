@@ -7,7 +7,8 @@ the batch, ``[B·P, K, D]``) and an inter-chunk path over P (frame positions
 folded into the batch, ``[B·K, P, D]``), each a one-layer BLSTM, a ``dense``
 back to D, a layer norm, dropout and the residual.  Padded frames are zeroed
 after every block.  With ``remat`` each block is recomputed in the backward
-(``torch.utils.checkpoint``).
+(``torch.utils.checkpoint``).  The same chunking at hop K/2 is SepFormer's
+published segmentation (``pad_to_chunks``, ``unchunk``; ``models/sepformer.py``).
 
 For a prefix frame mask every intra row and every inter row is again a prefix
 (or empty), which is what cuDNN's packed LSTM takes.  Their lengths are
@@ -213,12 +214,32 @@ def path_lengths(t: int, k: int, mask: torch.Tensor | None, batch: int):
     return torch.from_numpy(intra.reshape(-1)), torch.from_numpy(inter.reshape(-1))
 
 
-def pad_to_chunks(h: torch.Tensor, mask: torch.Tensor | None, k: int):
-    """The trunk's input ``[B, T', D]`` padded to ``P·K`` frames and its mask,
-    materialised when padding is introduced (so padded frames never reach
-    the inter-chunk path): -> (h ``[B, P, K, D]``, mask ``[B, P, K]`` or
-    None)."""
+def segments(t: int | torch.Tensor, k: int):
+    """The number of chunks of SepFormer's published segmentation of ``t``
+    frames (SpeechBrain's ``Dual_Path_Model._Segmentation``): K/2 zero frames
+    before frame 0, 1 to K after the last (the ``gap`` and K/2), chunks of K
+    at hop K/2.  ``t`` may be a tensor of frame counts."""
+    return 2 * ((k // 2 + t) // k + 1)
+
+
+def pad_to_chunks(h: torch.Tensor, mask: torch.Tensor | None, k: int, hop: int | None = None):
+    """The trunk's input ``[B, T', D]`` on a grid of chunks of K frames, and
+    its mask: -> (h ``[B, P, K, D]``, mask ``[B, P, K]`` or None).
+
+    At hop K (the default; DPRNN and DPT) the P = ⌈T'/K⌉ chunks tile the
+    frames padded to ``P·K``, and the mask is materialised when padding is
+    introduced (so padded frames never reach the inter-chunk path).  At hop
+    K/2 the grid is SepFormer's published segmentation (``segments``), the
+    chunks overlap by half, and there is no frame mask: SepFormer masks
+    whole chunks (``models/sepformer.py``).  ``unchunk`` puts the frames
+    back."""
     b, t, d = h.shape
+    if hop is not None and hop != k:
+        if 2 * hop != k or mask is not None:
+            raise ValueError(f"chunks of {k} frames overlap at hop {k} or, without a mask, "
+                             f"{k // 2}; got hop {hop}")
+        back = segments(t, k) // 2 * k - t
+        return F.pad(h, (0, 0, hop, back)).unfold(1, k, hop).transpose(2, 3), None
     p = -(-t // k)
     if p * k != t:
         h = F.pad(h, (0, 0, 0, p * k - t))
@@ -226,6 +247,19 @@ def pad_to_chunks(h: torch.Tensor, mask: torch.Tensor | None, k: int):
         mask = F.pad(m.to(h.dtype), (0, p * k - t))
     m_g = None if mask is None else mask.to(h.dtype).reshape(b, p, k)
     return h.reshape(b, p, k, d), m_g
+
+
+def unchunk(h: torch.Tensor, t: int, hop: int | None = None) -> torch.Tensor:
+    """The inverse of ``pad_to_chunks``: chunks ``[B, P, K, D]`` back to the
+    frames ``[B, t, D]``.  At hop K/2 each frame is the sum of the two chunks
+    over it, the even chunks' value plus the odd's, as SpeechBrain's
+    ``_over_add`` adds them."""
+    b, _, k, d = h.shape
+    if hop is None or hop == k:
+        return h.reshape(b, -1, d)[:, :t]
+    even = h[:, 0::2].reshape(b, -1, d)  # chunks from padded frame 0, K, 2K, ...
+    odd = h[:, 1::2].reshape(b, -1, d)  # from K/2, 3K/2, ...
+    return (even[:, hop:] + odd[:, :-hop])[:, :t]
 
 
 def _path(path: DualPathPath, x, mask, lengths, compute_dtype, rate, rng):
@@ -281,4 +315,4 @@ def dprnn_stack(
             h = checkpoint(_block, *args, use_reentrant=False, preserve_rng_state=False)
         else:
             h = _block(*args)
-    return h.reshape(b, -1, d)[:, :t]
+    return unchunk(h, t)

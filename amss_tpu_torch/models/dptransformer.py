@@ -2,7 +2,9 @@
 the frame axis in P chunks of K frames as in ``models/dprnn.py``, each block
 an intra-chunk and an inter-chunk pre-LN transformer layer (self-attention,
 then a ReLU feed-forward, each with dropout and a residual), with a
-sinusoidal position code added before each attention.
+sinusoidal position code added before each attention.  SepFormer's paths
+(``models/sepformer.py``) are ``TransformerStack``s of these layers without
+that code, which ``transformer_stack`` adds once, and with a final norm.
 
 The padding mask is additive, ``logits + (mask - 1)·1e9`` in float32, as in
 the JAX package.  A query row whose keys are all padding then has logits that
@@ -29,6 +31,7 @@ from amss_tpu_torch.models.dprnn import (
     layer_norm,
     pad_to_chunks,
     split_key,
+    unchunk,
 )
 
 _NEG = -1e9  # the additive logit of a padded key
@@ -58,6 +61,16 @@ class TransformerPath(nn.Module):
         self.ln2 = LayerNorm(d_model)
         self.ffn = FeedForward(d_model, ffn_dim)
 
+    @torch.no_grad()
+    def init_parameters(self, generator: torch.Generator) -> None:
+        """Layer norms g = 1 and b = 0, each dense uniform in ±1/√n_in with
+        bias 0, drawn in the order q, k, v, o, w1, w2."""
+        self.ln1.reset()
+        self.ln2.reset()
+        for layer in (self.attn.wq, self.attn.wk, self.attn.wv, self.attn.wo, self.ffn.w1,
+                      self.ffn.w2):
+            init_dense(layer, generator)
+
 
 class DPTBlock(nn.Module):
     def __init__(self, d_model: int, ffn_dim: int):
@@ -82,18 +95,21 @@ class DPT(nn.Module):
         generator) cannot replay ``jax.random``."""
         init_dense(self.in_proj, generator)
         for blk in self.blocks:
-            for path in (blk.intra, blk.inter):
-                path.ln1.reset()
-                path.ln2.reset()
-                for layer in (path.attn.wq, path.attn.wk, path.attn.wv, path.attn.wo,
-                              path.ffn.w1, path.ffn.w2):
-                    init_dense(layer, generator)
+            blk.intra.init_parameters(generator)
+            blk.inter.init_parameters(generator)
 
 
-def sinusoid(length: int, dim: int, device=None) -> torch.Tensor:
-    """The fixed sinusoidal position code ``[length, dim]`` (float32), zero
-    padded in its last column for an odd ``dim``."""
+def sinusoid(length: int, dim: int, device=None, interleaved: bool = False) -> torch.Tensor:
+    """The fixed sinusoidal position code ``[length, dim]`` (float32): the
+    sines, then the cosines, zero padded in its last column for an odd
+    ``dim``; ``interleaved``, sine and cosine alternate (columns 2i and
+    2i + 1) at SpeechBrain's frequencies ``exp(-2i·ln(10000)/dim)``, as its
+    ``PositionalEncoding`` makes them (``dim`` even)."""
     pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    if interleaved:
+        two_i = torch.arange(0, dim, 2, dtype=torch.float32, device=device)
+        ang = pos * torch.exp(two_i * -(math.log(10000.0) / dim))
+        return torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1).reshape(length, dim)
     i = torch.arange(dim // 2, dtype=torch.float32, device=device)[None, :]
     ang = pos / torch.pow(10000.0, 2.0 * i / dim)
     pe = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
@@ -123,15 +139,50 @@ def mha(attn: Attention, x: torch.Tensor, mask: torch.Tensor | None, heads: int,
     return dense(attn.wo, o, compute_dtype)
 
 
-def _path(p: TransformerPath, x, mask, heads, compute_dtype, rate, rng):
-    """x + Attn(LN(x + pe)), then + FFN(LN(.)): ``[N, L, D]`` -> ``[N, L, D]``."""
+def _path(p: TransformerPath, x, mask, heads, compute_dtype, rate, rng, pe: bool = True,
+          eps: float = 1e-5):
+    """x + Attn(LN(x + pe)), then + FFN(LN(.)): ``[N, L, D]`` -> ``[N, L, D]``;
+    without ``pe`` the plain pre-LN layer x + Attn(LN(x)), as a
+    ``TransformerStack``'s layers are."""
     r1, r2 = split_key(rng, 2)
-    pe = sinusoid(x.shape[1], x.shape[2], x.device)
-    h = x + dropout(mha(p.attn, layer_norm(p.ln1, x + pe), mask, heads, compute_dtype),
+    y = x + sinusoid(x.shape[1], x.shape[2], x.device) if pe else x
+    h = x + dropout(mha(p.attn, layer_norm(p.ln1, y, eps), mask, heads, compute_dtype),
                     rate, r1)
-    f = dense(p.ffn.w2, torch.relu(dense(p.ffn.w1, layer_norm(p.ln2, h), compute_dtype)),
+    f = dense(p.ffn.w2, torch.relu(dense(p.ffn.w1, layer_norm(p.ln2, h, eps), compute_dtype)),
               compute_dtype)
     return h + dropout(f, rate, r2)
+
+
+class TransformerStack(nn.Module):
+    """``layers`` pre-LN layers and a final ``norm``: SpeechBrain's
+    ``SBTransformerBlock`` (its ``TransformerEncoder`` with
+    ``normalize_before``), each path of a SepFormer block."""
+
+    def __init__(self, d_model: int, ffn_dim: int, layers: int):
+        super().__init__()
+        self.layers = nn.ModuleList(TransformerPath(d_model, ffn_dim) for _ in range(layers))
+        self.norm = LayerNorm(d_model)
+
+    @torch.no_grad()
+    def init_parameters(self, generator: torch.Generator) -> None:
+        """Each layer's (``TransformerPath.init_parameters``), the final norm
+        g = 1 and b = 0 (``generator`` a CPU generator)."""
+        for path in self.layers:
+            path.init_parameters(generator)
+        self.norm.reset()
+
+
+def transformer_stack(st: TransformerStack, x: torch.Tensor, mask: torch.Tensor | None,
+                      heads: int, compute_dtype: torch.dtype = torch.float32,
+                      eps: float = 1e-6, rate: float = 0.0,
+                      rng: DropoutKey | None = None) -> torch.Tensor:
+    """The interleaved position code added once to x ``[N, L, D]``, the
+    layers, the final norm: -> ``[N, L, D]``; ``mask [N, L]`` (1 = valid key)
+    as ``mha``'s.  ``eps`` 1e-6 is SpeechBrain's."""
+    h = x + sinusoid(x.shape[1], x.shape[2], x.device, interleaved=True)
+    for layer, r in zip(st.layers, split_key(rng, len(st.layers))):
+        h = _path(layer, h, mask, heads, compute_dtype, rate, r, pe=False, eps=eps)
+    return layer_norm(st.norm, h, eps)
 
 
 def _block(bp: DPTBlock, h, m_g, heads, compute_dtype, rate, rng):
@@ -173,4 +224,4 @@ def dpt_stack(
             h = checkpoint(_block, *args, use_reentrant=False, preserve_rng_state=False)
         else:
             h = _block(*args)
-    return h.reshape(b, -1, d)[:, :t]
+    return unchunk(h, t)

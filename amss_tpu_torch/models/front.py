@@ -7,6 +7,7 @@ of ``models/adapt.py``.
 ``decode(codes, aux, length)``: masked magnitudes times the phase, back to
 waveforms.  Analysis runs kernel B1 and synthesis kernel B2, with the window
 folded into their bases; the COLA divide stays outside the kernel.
+``make_front`` also builds SepFormer's conv front (``ConvFrontEnd``).
 
 The train-time corruptions (``drop_sources``, ``corrupt_mix``,
 ``reverberate_sources``) are each a draw and an apply.  The draws come from a
@@ -77,11 +78,55 @@ class STFTFrontEnd(nn.Module):
         return y.reshape(*lead, length)
 
 
+class ConvFrontEnd(nn.Module):
+    """SepFormer's published encoder and decoder (SpeechBrain's
+    ``dual_path.Encoder`` and ``Decoder``): a bias-free stride-s conv1d of L
+    taps followed by a ReLU, and a bias-free transposed conv1d.  They are
+    ``frames @ enc`` (kernel B1) and ``overlap_add(codes @ dec)`` (kernel B2)
+    behind the same wrappers and shape gate as the adaptive front's, with its
+    layouts (``enc [L, N]``, ``dec [N, L]``).  The codes are the separator's
+    features and carry no aux."""
+
+    def __init__(self, cfg: FrontConfig):
+        super().__init__()
+        if cfg.kind != "conv" or cfg.pool != 1:
+            raise ValueError(f"ConvFrontEnd needs kind 'conv' and pool 1, got {cfg.kind!r}, "
+                             f"pool {cfg.pool}")
+        self.cfg = cfg
+        self.enc = nn.Parameter(torch.zeros(cfg.filter_len, cfg.n_filters))
+        self.dec = nn.Parameter(torch.zeros(cfg.n_filters, cfg.filter_len))
+
+    @torch.no_grad()
+    def init_parameters(self, generator: torch.Generator) -> None:
+        """PyTorch's default conv init: uniform in ±1/√L for both."""
+        bound = self.cfg.filter_len ** -0.5
+        for p in (self.enc, self.dec):
+            p.copy_((torch.rand(p.shape, generator=generator) * 2.0 - 1.0) * bound)
+
+    def encode(self, wave: torch.Tensor) -> tuple[torch.Tensor, dict]:
+        """``wave[..., T]`` -> (codes ``[..., T', N]``, {})."""
+        lead = wave.shape[:-1]
+        z = framed_matmul(wave.reshape(-1, wave.shape[-1]), self.enc, self.cfg.stride)
+        return torch.relu(z).reshape(*lead, *z.shape[-2:]), {}
+
+    def features(self, codes: torch.Tensor) -> torch.Tensor:
+        return codes
+
+    def decode(self, codes: torch.Tensor, aux: dict, length: int) -> torch.Tensor:
+        """codes ``[..., T', N]`` -> ``[..., length]``, trimmed or zero-padded."""
+        lead = codes.shape[:-2]
+        y = decode_ola(codes.reshape(-1, *codes.shape[-2:]), self.dec, self.cfg.stride,
+                       length=length)
+        return y.reshape(*lead, length)
+
+
 def make_front(cfg: FrontConfig) -> nn.Module:
     if cfg.kind == "stft":
         return STFTFrontEnd(cfg)
     if cfg.kind == "adapt":
         return AdaptFrontEnd(cfg)
+    if cfg.kind == "conv":
+        return ConvFrontEnd(cfg)
     raise ValueError(f"unknown front kind {cfg.kind!r}")
 
 

@@ -77,6 +77,7 @@ from amss_tpu_torch.models.chimera import ChimeraModel
 from amss_tpu_torch.models.dpcl import DPCLModel
 from amss_tpu_torch.models.dprnn import DropoutKey
 from amss_tpu_torch.models.l41 import L41Model
+from amss_tpu_torch.models.sepformer import SepFormerModel
 from amss_tpu_torch.models.tasnet import TasNetModel
 from amss_tpu_torch.ops.metrics import sdr_improvement
 from amss_tpu_torch.parallel.mesh import all_reduce_mean, broadcast_tensors, rank_and_world
@@ -97,7 +98,7 @@ from amss_tpu_torch.utils.profiling import (
 from amss_tpu_torch.weights import jax_tree, load_model_from_run, named_from_jax
 
 _MODELS = {"dpcl": DPCLModel, "adapt_ae": AdaptAutoencoder, "tasnet": TasNetModel,
-           "l41": L41Model, "chimera": ChimeraModel}
+           "l41": L41Model, "chimera": ChimeraModel, "sepformer": SepFormerModel}
 
 
 def make_model(cfg: ModelConfig, base_run: str | None = None, device=None) -> torch.nn.Module:

@@ -14,16 +14,22 @@
   on the current stream: the interval between the stream reaching the span's
   start and its end, the layer's busy time and the idle time inside it.
   Past ``CAP`` kept records, spans are counted, not kept.
-* ``recording()``: keep spans without a profiler (tests, operators).
+* ``recording()``: keep spans without a profiler (tests, operators);
+  ``keeping()`` says whether spans are kept, so that an attribute that costs
+  work is made only then.
 * ``spans()``: the kept records, their device intervals resolved, and the
-  list cleared (``trace()`` clears it too).
+  list cleared (``trace()`` clears it too).  An attribute given as a tensor
+  (a count on the card) is read into a number there, after the card is
+  waited for, so a span costs no wait while it is open.
 * ``StepTimer``: wall-clock step statistics (p50/p95) without a trace.
 
 The span names are the constants below; each layer's code opens its own.
 Serving (``infer/streaming.py``): ``serve.job`` > ``serve.pack``,
 ``serve.batch`` (> the model's), ``serve.copy_out``, ``sync.end``.  The
 model (``models/``): ``front``, ``trunk``, ``head``, ``cluster``, ``decode``,
-and ``sync.lengths`` where the BLSTM copies its mask to the host.  Training
+and ``sync.lengths`` where the BLSTM copies its mask to the host;
+SepFormer's ``trunk`` > ``sepformer.intra``, ``sepformer.inter`` (a stack of
+one repeat each; ``chunks``, ``valid_chunks``, ``rows``).  Training
 (``train/engine.py``): ``train.step`` > ``train.gather``, ``train.forward``,
 ``train.backward``, ``train.optimizer`` (> ``train.clip``; its attributes
 ``tensors`` and ``chunks`` say what the kernel pair of the optimizer took, 0
@@ -60,9 +66,11 @@ TRAIN_OPTIMIZER = "train.optimizer"
 TRAIN_CLIP = "train.clip"
 TRAIN_DRAW = "train.draw"
 TRAIN_PUT = "train.put"
+SEPFORMER_INTRA = "sepformer.intra"
+SEPFORMER_INTER = "sepformer.inter"
 
 DEVICE_TIMED = frozenset({FRONT, TRUNK, HEAD, CLUSTER, DECODE, TRAIN_FORWARD, TRAIN_BACKWARD,
-                          TRAIN_OPTIMIZER})
+                          TRAIN_OPTIMIZER, SEPFORMER_INTRA, SEPFORMER_INTER})
 CAP = 100_000  # kept records; spans past it are counted in ``SpanList.dropped``
 
 _profiler = torch.autograd.profiler  # its _is_profiler_enabled is read at each call
@@ -148,10 +156,16 @@ class _Span:
         return False
 
 
+def keeping() -> bool:
+    """Whether ``span`` keeps records now (a profiler records or a
+    ``recording()`` block is open)."""
+    return bool(_profiler._is_profiler_enabled or _open)
+
+
 def span(name: str, device=None, **attrs):
     """A context manager: the port's span ``name`` (module docstring); off,
     the shared null context."""
-    if not (_profiler._is_profiler_enabled or _open):
+    if not keeping():
         return _NULL
     return _Span(name, device, attrs)
 
@@ -171,7 +185,8 @@ def recording():
 
 def spans() -> SpanList:
     """The kept records in the order the spans began, each device interval
-    resolved (this waits for the card), and the list cleared."""
+    and tensor attribute resolved (this waits for the card), and the list
+    cleared."""
     global _kept, _dropped
     kept, dropped = _kept, _dropped
     _kept, _dropped = [], 0
@@ -186,6 +201,9 @@ def spans() -> SpanList:
         r.device_ms = start.elapsed_time(end)
     for r in kept:
         r.events = None
+        for k, v in r.attrs.items():
+            if isinstance(v, torch.Tensor):
+                r.attrs[k] = v.item()
     out = SpanList(kept)
     out.dropped = dropped
     return out

@@ -42,13 +42,14 @@ from amss_tpu_torch.models.chimera import ChimeraModel
 from amss_tpu_torch.models.dpcl import DPCLModel
 from amss_tpu_torch.models.enhance import EnhancerModel
 from amss_tpu_torch.models.l41 import L41Model
+from amss_tpu_torch.models.sepformer import SepFormerModel
 from amss_tpu_torch.models.tasnet import TasNetModel
 from amss_tpu_torch.utils.config import ModelConfig, recipe_from_dict
 from amss_tpu_torch.utils.device import resolve_device
 
 _MODELS = {"dpcl": DPCLModel, "tasnet": TasNetModel, "l41": L41Model,
-           "chimera": ChimeraModel}
-Separator = DPCLModel | TasNetModel | L41Model | ChimeraModel | EnhancerModel
+           "chimera": ChimeraModel, "sepformer": SepFormerModel}
+Separator = DPCLModel | TasNetModel | L41Model | ChimeraModel | SepFormerModel | EnhancerModel
 
 
 def params_to_jax(model: Separator) -> dict:
@@ -61,7 +62,7 @@ def params_to_jax(model: Separator) -> dict:
 def params_from_jax(cfg: ModelConfig, params: dict, device=None,
                     base: Separator | None = None) -> Separator:
     """The model of ``cfg.kind`` (``dpcl``, ``tasnet``, ``l41``, ``chimera``,
-    or ``enhance`` over ``base``) holding a JAX parameter tree given as numpy
+    ``sepformer``, or ``enhance`` over ``base``) holding a JAX parameter tree given as numpy
     arrays (lists, or dicts keyed "0", "1", ... as a checkpoint stores them).
     Each LSTM direction maps as ``weight_ih = wxᵀ``, ``weight_hh = whᵀ``,
     ``bias_ih = b``, ``bias_hh = 0``; each dense as ``weight = wᵀ``;

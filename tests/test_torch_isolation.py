@@ -32,6 +32,7 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import amss_tpu_torch.models.l41, amss_tpu_torch.models.chimera\n"
         "import amss_tpu_torch.infer.count, amss_tpu_torch.models.enhance\n"
         "import amss_tpu_torch.models.dprnn, amss_tpu_torch.models.dptransformer\n"
+        "import amss_tpu_torch.models.sepformer\n"
         "import amss_tpu_torch.infer.evaluate, amss_tpu_torch.ops.bss_eval\n"
         "import amss_tpu_torch.ops.stoi, amss_tpu_torch.data.resample, amss_tpu_torch.data.store\n"
         "import amss_tpu_torch.cli, amss_tpu_torch.__main__, amss_tpu_torch.infer.export\n"

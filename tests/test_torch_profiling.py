@@ -101,6 +101,42 @@ def test_trace_writes_a_chrome_trace_with_spans(tmp_path):
     assert list(spans()) == []  # trace() dropped what it kept: the trace holds it
 
 
+def test_sepformer_opens_its_stack_spans_under_trunk():
+    """A padded batch of SepFormer (chunks of 8 frames at hop 4) opens
+    ``sepformer.intra`` and ``sepformer.inter`` once a repeat each, inside
+    ``trunk``, with the grid's chunks and the rows' own (their count read on
+    the device, resolved by ``spans()``)."""
+    from amss_tpu_torch.models.sepformer import SepFormerModel
+
+    cfg = ModelConfig(kind="sepformer",
+                      front=FrontConfig(kind="conv", n_filters=8, filter_len=16, stride=8, pool=1),
+                      sep=SeparatorConfig(hidden=8, trunk="sepformer", heads=2, expansion=2,
+                                          blocks=1, repeats=2, chunk_frames=8), nb_speakers=2)
+    model = SepFormerModel(cfg)
+    model.init_parameters(torch.Generator().manual_seed(0))
+    lengths = (800, 400, 200)  # 99, 49, 24 frames: 26, 14 and 8 chunks of their own
+    mix = torch.zeros(3, 800)
+    fm = torch.zeros(3, cfg.front.frames_for(800))
+    for i, n in enumerate(lengths):
+        mix[i, :n] = torch.randn(n, generator=torch.Generator().manual_seed(i))
+        fm[i, :cfg.front.frames_for(n)] = 1.0
+    spans()
+    with profiling.recording():
+        model.eval().separate(mix, frame_mask=fm)
+    kept = {r.id: r for r in spans()}
+    for name in ("sepformer.intra", "sepformer.inter"):
+        got = [r for r in kept.values() if r.name == name]
+        assert len(got) == 2
+        for r in got:
+            assert kept[r.parent].name == "trunk"
+            assert r.attrs == {"chunks": 3 * 26, "rows": 3, "valid_chunks": 26 + 14 + 8}
+            assert isinstance(r.attrs["valid_chunks"], int)
+    with profiling.recording():
+        model.separate(mix)  # no mask: every chunk is a row's own
+    got = [r for r in spans() if r.name == "sepformer.inter"]
+    assert [r.attrs["valid_chunks"] for r in got] == [3 * 26] * 2
+
+
 def test_trace_of_the_card_without_kernels_raises(tmp_path):
     """A CUDA trace that recorded no kernel raises and writes nothing (here
     the block runs on the CPU, so the card records none)."""
