@@ -4,12 +4,13 @@
 ``export_serving`` traces ``model.separate`` once per (bucket, platform) with
 ``torch.export`` and writes each program beside one parameter blob; any
 process with torch on that platform runs them, with no model class, no
-config reconstruction and no tracing.  The two hand-written kernels stay in
-the programs as the operators ``amss::framed_matmul`` and ``amss::decode_ola``
-(``ops/kernels``), so a loaded CUDA program launches them, counted in their
-wrappers' ``launches``; the BLSTM takes its ``traced`` path, which reads no
-host data, in float32, and one operator a layer, ``amss::blstm_bf16_layer``
-(``ops/blstm_bf16.py``), in bfloat16.
+config reconstruction and no tracing.  The hand-written kernels stay in
+the programs as the operators ``amss::framed_matmul``, ``amss::decode_ola``,
+``amss::kmeans`` and ``amss::soft_assignments`` (``ops/kernels``), so a loaded
+CUDA program launches them, counted in their wrappers' ``launches``; the
+BLSTM takes its ``traced`` path, which reads no host data, in float32, and
+one operator a layer, ``amss::blstm_bf16_layer`` (``ops/blstm_bf16.py``), in
+bfloat16.
 
 A program is tied to the device it was traced on (its constants and the
 tensors it makes live there), so there is one per (bucket, platform), and
@@ -52,6 +53,7 @@ import torch
 # the operators the programs call are registered when these are imported
 import amss_tpu_torch.ops.blstm_bf16  # noqa: F401
 import amss_tpu_torch.ops.kernels.framed_matmul  # noqa: F401
+import amss_tpu_torch.ops.kernels.kmeans  # noqa: F401
 import amss_tpu_torch.ops.kernels.ola  # noqa: F401
 from amss_tpu_torch.ckpt.checkpoint import msgpack_restore, msgpack_serialize, to_host
 from amss_tpu_torch.ckpt.tree import named_from_jax

@@ -13,7 +13,7 @@ from amss_tpu_torch.models.base import _EPS, SeparatorBase
 from amss_tpu_torch.models.blstm import dense, init_dense
 from amss_tpu_torch.models.dprnn import DropoutKey
 from amss_tpu_torch.models.front import _one_hot_last, vad_weights
-from amss_tpu_torch.ops.kmeans import kmeans, soft_assignments
+from amss_tpu_torch.ops.kernels.kmeans import kmeans, kmeans_launches, soft_assignments
 from amss_tpu_torch.utils.config import ModelConfig
 from amss_tpu_torch.utils.profiling import CLUSTER, FRONT, HEAD, span
 
@@ -113,7 +113,8 @@ class DPCLModel(SeparatorBase):
             feats = self.front.features(codes)
         v = self.embed(feats, frame_mask)
         b = v.shape[0]
-        with span(CLUSTER, device=mix.device):
+        with span(CLUSTER, device=mix.device) as rec:
+            launched = kmeans_launches()
             w = vad_weights(codes, c.vad_threshold_db)
             if frame_mask is not None:
                 w = w * frame_mask[..., None]
@@ -124,4 +125,6 @@ class DPCLModel(SeparatorBase):
             else:
                 masks = _one_hot_last(assign, k, codes.dtype)
             masks = masks.reshape(*codes.shape, k)
+            if rec is not None:  # the k-means kernels' launches, 0 on the CPU
+                rec.attrs["kmeans_launches"] = kmeans_launches() - launched
         return self.apply_masks_and_decode(codes, aux, masks, length)

@@ -18,7 +18,7 @@ from amss_tpu_torch.models.base import SeparatorBase
 from amss_tpu_torch.models.blstm import dense, init_dense
 from amss_tpu_torch.models.dprnn import DropoutKey
 from amss_tpu_torch.models.front import _one_hot_last, vad_weights
-from amss_tpu_torch.ops.kmeans import kmeans
+from amss_tpu_torch.ops.kernels.kmeans import kmeans
 from amss_tpu_torch.utils.config import ModelConfig
 
 

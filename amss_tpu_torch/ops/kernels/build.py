@@ -46,6 +46,11 @@ SIGNATURES = {
     # plan, pointers, partials, tensors, chunks, max_norm, 1 - b1, b1, 1 - b2, b2,
     # 1 / bc1, 1 / bc2, eps, -lr, stream
     "amss_multi_adam_update": [_P, _P, _P, _I, _I, *[_F] * 9, _P],
+    # x, weights, the first seed's score, centroids, assignments, partials,
+    # seed values, seed indices, batch, n, e, k, iters, stream
+    "amss_kmeans": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, centroids, masks, partials, batch, n, e, k, tau, stream
+    "amss_soft_assignments": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
 

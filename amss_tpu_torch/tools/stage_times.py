@@ -57,7 +57,7 @@ import numpy as np
 import torch
 
 from amss_tpu_torch.models.front import vad_weights
-from amss_tpu_torch.ops.kmeans import kmeans, soft_assignments
+from amss_tpu_torch.ops.kernels.kmeans import kmeans, soft_assignments
 from amss_tpu_torch.weights import load_model_from_run
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))

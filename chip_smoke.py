@@ -13,6 +13,17 @@ Phases, each printing its wall seconds:
    main path's shapes, at long-form's tail-group shapes and at edge shapes
    (ragged frame counts, K not a multiple of 8, trimmed lengths), and timed beside its plain version, one
    PyTorch library call computing the same function, and its two bounds;
+2c. k-means: the fit and the soft masks of ``csrc/kmeans.cu`` against the
+   plain version (``ops/kmeans.py``) on the card at the serving cell's shape
+   ([8, 765·129, 40], K 2) and at K 3 / E 20, the last 2.3% of each row's
+   points at weight 0, well-separated blobs, and the first shape again at
+   unit norm, as deep clustering's embeddings are, where the first seed's
+   score ties on every point (``tools/kmeans_check.py``, which the card tests
+   share): the first seed bit for bit the plain version's, centroids within
+   KMEANS_TOL of their norm, masks within KMEANS_TOL, assignments equal off
+   near ties, two runs bit-identical; the blobs timed beside the plain
+   version and its bound (one read of the embeddings a pass at 3.35 TB/s);
+   then k-means at the main path's size under CUDA's sync debug mode "error";
 2b. gradients: each kernel's autograd (its backward runs the other kernel)
    against torch autograd of its plain version on the card, at the training
    shape, the serving shape and edge shapes, with the backward launches
@@ -533,6 +544,22 @@ MADAM_DESIGN = ("two launches a step over every tensor: a static chunk table (<=
                 "one block each), the norm pass's float32 partials with no atomics, the update "
                 "pass re-summing them in float64 in every block; float4 loads where aligned")
 
+# phase 2c: the k-means kernels against the plain version at the serving
+# cell's points a row (765 frames of 129 bins), the last KMEANS_PAD of each
+# row at weight 0.  The sums run in other orders than cuBLAS's: centroids
+# (relative to their norm) and masks within KMEANS_TOL, assignments equal
+# wherever a point's two nearest distances differ by more than KMEANS_TOL
+# relative, since only there can rounding not flip them; the first seed,
+# whose score the kernels take from the plain version's expression, equal
+KMEANS_N = 765 * 129
+KMEANS_PAD = 0.023
+KMEANS_TOL = 1e-5
+KMEANS_DESIGN = ("one pass over the embeddings a step: a block stages 256 points by 16-byte "
+                 "loads, a thread a point (norm, dots, distances, first argmin), the tile's "
+                 "weighted sums by cluster to partials in a fixed order; one warp a centroid "
+                 "element sums them; no float atomics; 2K + 2 iters + 1 launches a fit, 2 "
+                 "for the masks")
+
 # name -> (source, the TPU kernel it replaces, its design)
 KERNELS = {
     "framed_matmul": ("amss_tpu_torch/csrc/framed_matmul.cu",
@@ -976,27 +1003,95 @@ def phase_kernels_c2(gen: torch.Generator) -> dict:
 def check_kmeans_needs_no_host_sync(gen: torch.Generator) -> None:
     """k-means at the main path's size under CUDA's sync debug mode "error":
     any operation that waits for the device on the host raises."""
-    from amss_tpu_torch.ops.kmeans import kmeans, soft_assignments
+    from amss_tpu_torch.ops.kernels.kmeans import (
+        SOFT_LAUNCHES, fit_launches, kmeans, kmeans_launches, soft_assignments)
 
     n = 997 * 129
     v = torch.randn(BATCH, n, 40, generator=gen, device="cuda")
     v = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
     w = (torch.rand(BATCH, n, generator=gen, device="cuda") > 0.3).float()
     torch.cuda.synchronize()
+    before = kmeans_launches()
     torch.cuda.set_sync_debug_mode("error")
     try:
         cent, _ = kmeans(v, k=2, iters=10, weights=w)
         soft_assignments(v, cent, tau=0.5)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    say("  k-means + soft masks [8, 128613, 40]: no host sync")
+    launched = kmeans_launches() - before
+    if launched != fit_launches(2, 10) + SOFT_LAUNCHES:
+        raise AssertionError(f"k-means + soft masks launched {launched} kernels")
+    say(f"  k-means + soft masks [8, 128613, 40]: no host sync, {launched} kernel launches")
+
+
+def phase_kmeans(gen: torch.Generator) -> dict:
+    """The k-means kernels against the plain version at the serving cell's
+    shape (K 2, E 40), at K 3 / E 20, and at the cell's shape on unit-norm
+    embeddings (``tools/kmeans_check.py``); the first two timed beside it."""
+    from amss_tpu_torch.ops import kmeans as plain
+    from amss_tpu_torch.ops.kernels.kmeans import kmeans, soft_assignments
+    from amss_tpu_torch.tools.kmeans_check import blobs, compare_with_plain, failures
+    from amss_tpu_torch.utils.timing import time_ms
+
+    out = {}
+    for k, e, unit in ((2, 40, False), (3, 20, False), (2, 40, True)):
+        x, w = blobs(BATCH, KMEANS_N, e, k, gen, KMEANS_PAD, unit)
+        r = compare_with_plain(x, w, k, tau=0.5, tol=KMEANS_TOL)
+        what = f"K {k} E {e} [{BATCH}, {KMEANS_N}, {e}]" + (" unit norm" if unit else "")
+        say(f"  {what}: first seed the plain version's: {r['first_seed_equal']}, all seeds: "
+            f"{r['seeds_equal']}; centroids {r['centroid_rel']:.3e} of their norm, masks "
+            f"{r['mask_err']:.3e} (tol {KMEANS_TOL:g}); assignments differing off "
+            f"{r['near_ties']} near ties: {r['assign_diff']}; bit-identical on a second run: "
+            f"{r['repeats']}; launches {r['launches']}")
+        failed = failures(r, k)
+        if failed:
+            raise AssertionError(f"k-means {what} against the plain version: {failed}")
+        name = f"k{k}_e{e}" + ("_unit" if unit else "")
+        out[name] = dict(shape=[BATCH, KMEANS_N, e], k=k, centroid_rel_err=r["centroid_rel"],
+                         mask_err=r["mask_err"], near_ties=r["near_ties"],
+                         first_seed_equal=r["first_seed_equal"], seeds_equal=r["seeds_equal"],
+                         repeats=r["repeats"], launches=r["launches"], tol=KMEANS_TOL)
+        if unit:
+            continue
+        nbytes = 4.0 * x.numel()
+        c = kmeans(x, k, 10, w)[0]
+        fit = dict(ms=time_ms(lambda: kmeans(x, k, 10, w), calls=5),
+                   plain_ms=time_ms(lambda: plain.kmeans(x, k, 10, w), calls=2, rounds=3),
+                   passes=k + 10 + 1)
+        fit["bound_ms"] = fit["passes"] * nbytes / PEAK_HBM_BYTES * 1e3
+        soft = dict(ms=time_ms(lambda: soft_assignments(x, c, 0.5), calls=5),
+                    plain_ms=time_ms(lambda: plain.soft_assignments(x, c, 0.5), calls=5),
+                    passes=2)
+        soft["bound_ms"] = (2 * nbytes + 4.0 * BATCH * KMEANS_N * k) / PEAK_HBM_BYTES * 1e3
+        for label, t in (("fit", fit), ("soft masks", soft)):
+            t["roofline_share"] = t["bound_ms"] / t["ms"]
+            say(f"  {what} {label}: {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['passes']} "
+                f"reads of x; {100 * t['roofline_share']:.1f}%), plain {t['plain_ms']:.4f} ms")
+        out[name].update(fit=fit, soft=soft)
+        del x, w, c
+    return out
+
+
+def kmeans_per_call(model) -> int:
+    """The k-means kernels' launches in one default ``separate`` call: deep
+    clustering's fit and soft masks, L41's blind fit, none elsewhere."""
+    from amss_tpu_torch.models.dpcl import DPCLModel
+    from amss_tpu_torch.models.l41 import L41Model
+    from amss_tpu_torch.ops.kernels.kmeans import SOFT_LAUNCHES, fit_launches
+
+    k = model.cfg.nb_speakers
+    if isinstance(model, DPCLModel):
+        return fit_launches(k, 10) + SOFT_LAUNCHES
+    return fit_launches(k, 10) if isinstance(model, L41Model) else 0
 
 
 def phase_speed(model, per_call: dict | None = None) -> tuple[dict, dict]:
     """Serve phase 3's utterances twice; ``per_call`` is each kernel's
     launches per batch call (1 each of B1 and B2 by default, and none of the
-    optimizer's pair, as in all serving)."""
+    optimizer's pair, as in all serving); the k-means kernels' are
+    ``kmeans_per_call``'s."""
     from amss_tpu_torch.infer.streaming import BucketSpec, StreamingSeparator
+    from amss_tpu_torch.ops.kernels.kmeans import kmeans_launches
 
     t = SECONDS * SAMPLE_RATE
     rng = np.random.default_rng(0)
@@ -1005,15 +1100,17 @@ def phase_speed(model, per_call: dict | None = None) -> tuple[dict, dict]:
     calls = N_UTTS // BATCH
 
     reset_launches()
+    k0 = kmeans_launches()
     est = sep.separate_all(waves, max_batch=BATCH)  # pass 1 warms the one shape
-    after1 = launch_counts()
+    after1 = {**launch_counts(), "kmeans": kmeans_launches() - k0}
     rtf1 = sep.meter.rtf
     sep.meter.compute_seconds = sep.meter.audio_seconds = 0.0
     sep.meter.utterances = sep.meter.calls = 0
     est = sep.separate_all(waves, max_batch=BATCH)
-    launches = launch_counts()
+    launches = {**launch_counts(), "kmeans": kmeans_launches() - k0}
 
-    per_call = per_call or {"framed_matmul": 1, "decode_ola": 1, "multi_adam": 0}
+    per_call = {**(per_call or {"framed_matmul": 1, "decode_ola": 1, "multi_adam": 0}),
+                "kmeans": kmeans_per_call(model)}
     for n in launches:
         k = per_call[n]
         if after1[n] != k * (calls + 1) or launches[n] - after1[n] != k * calls:
@@ -2617,6 +2714,7 @@ import numpy as np
 import torch
 from amss_tpu_torch.infer.export import ServingArtifact
 from amss_tpu_torch.ops.kernels.framed_matmul import framed_matmul
+from amss_tpu_torch.ops.kernels.kmeans import kmeans
 from amss_tpu_torch.ops.kernels.ola import decode_ola
 
 path, inp, outp = sys.argv[1:4]
@@ -2627,7 +2725,7 @@ load_s = time.perf_counter() - t0
 waves = list(data["waves"])
 passes = []
 for p in range(2):
-    framed_matmul.launches = decode_ola.launches = 0
+    framed_matmul.launches = decode_ola.launches = kmeans.launches = 0
     m = art.meter
     m.compute_seconds = m.audio_seconds = 0.0
     m.utterances = m.calls = 0
@@ -2635,7 +2733,8 @@ for p in range(2):
     passes.append(dict(rtf=m.rtf, utterances_per_s=m.utterances_per_sec,
                        warmup_s=m.warmup_seconds,
                        launches={"framed_matmul": framed_matmul.launches,
-                                 "decode_ola": decode_ola.launches}))
+                                 "decode_ola": decode_ola.launches,
+                                 "kmeans": kmeans.launches}))
 quality = np.stack(art.separate_all(list(data["quality"])))
 models = sorted(m for m in sys.modules if m.startswith("amss_tpu_torch.models"))
 np.savez(outp, est=np.stack(est), quality=quality)
@@ -2744,10 +2843,12 @@ def phase_artifact_c1(model, kept: dict, workdir: str) -> tuple[dict, dict]:
         raise AssertionError(f"the artifact's process imported {child['model_modules']} "
                              f"and ran on {child['device']}")
     calls = N_UTTS // BATCH
+    per_call = kmeans_per_call(model)
     for p, want in zip(child["passes"], (calls + 1, calls)):
-        if p["launches"] != {"framed_matmul": want, "decode_ola": want}:
+        if p["launches"] != {"framed_matmul": want, "decode_ola": want, "kmeans": per_call * want}:
             raise AssertionError(f"the exported program launched {p['launches']}, phase 3 "
-                                 f"launches {want} of each in that pass")
+                                 f"launches {want} of B1 and B2 and {per_call * want} of the "
+                                 f"k-means kernels in that pass")
     res = np.load(outp)
     if res["est"].shape != (N_UTTS, 2, len(waves[0])) or not np.isfinite(res["est"]).all():
         raise AssertionError(f"the artifact returned {res['est'].shape}")
@@ -3761,6 +3862,7 @@ def phase_artifact_bf16(kept: dict, workdir: str, artifact_launches: dict,
     against phase 24's artifact, its RTF beside phase 31's live bf16 RTF."""
     from amss_tpu_torch.infer.export import export_serving
     from amss_tpu_torch.infer.streaming import BucketSpec, StreamingSeparator
+    from amss_tpu_torch.ops.kernels.kmeans import SOFT_LAUNCHES, fit_launches
     from amss_tpu_torch.weights import load_model_from_run
 
     model = load_model_from_run(CKPT)
@@ -3790,9 +3892,12 @@ def phase_artifact_bf16(kept: dict, workdir: str, artifact_launches: dict,
         raise AssertionError(f"the bf16 artifact's process imported {child['model_modules']} "
                              f"and ran on {child['device']}")
     calls = N_UTTS // BATCH
+    per_call = fit_launches(2, 10) + SOFT_LAUNCHES  # deep clustering's fit and soft masks
     for p, want in zip(child["passes"], (calls + 1, calls)):
-        if p["launches"] != {"framed_matmul": want, "decode_ola": want}:
-            raise AssertionError(f"the bf16 program launched {p['launches']}, want {want} each")
+        k = per_call * want
+        if p["launches"] != {"framed_matmul": want, "decode_ola": want, "kmeans": k}:
+            raise AssertionError(f"the bf16 program launched {p['launches']}, want {want} of B1 "
+                                 f"and B2 and {k} of the k-means kernels")
     if child["passes"][1]["launches"] != artifact_launches:
         raise AssertionError(f"the bf16 program launched {child['passes'][1]['launches']}, the "
                              f"float32 one {artifact_launches}")
@@ -4053,7 +4158,8 @@ def main() -> None:
         say(f"  {name}: {compiled[name]}")
         if compiled[name]["HMMA"] + compiled[name]["HGMMA"] == 0:
             raise AssertionError(f"{name}: no tensor-core instruction in its machine code")
-    for name in ("multi_adam_norm", "multi_adam_update"):
+    for name in ("multi_adam_norm", "multi_adam_update", "kmeans_pass", "kmeans_update",
+                 "kmeans_seed"):
         compiled[name] = kernel_facts(ptxas, sass, f"{name}_kernel")
         say(f"  {name}: {compiled[name]}")
     say(f"phase 1 build: build_s {build_s:.2f} (wall {time.perf_counter() - t0:.2f} s)")
@@ -4061,8 +4167,12 @@ def main() -> None:
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     kern = phase_kernels(gen)
-    check_kmeans_needs_no_host_sync(gen)
     say(f"phase 2 kernels: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    kmeans_record = phase_kmeans(gen)
+    check_kmeans_needs_no_host_sync(gen)
+    say(f"phase 2c k-means: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
     grads = phase_gradients(gen)
@@ -4375,6 +4485,12 @@ def main() -> None:
             "tensors", "chunks", "elements", "ms", "norm_ms", "plain_ms", "library_ms",
             "bound_ms", "roofline_share", "host_ms", "agree")},
         "kernels": {k: compiled[k] for k in ("multi_adam_norm", "multi_adam_update")},
+    })
+    record.append({
+        "name": "kmeans", "route": "cuda", "source": "amss_tpu_torch/csrc/kmeans.cu",
+        "replaces": None, "design": KMEANS_DESIGN, **kmeans_record,
+        "launches_per_path": {p: n["kmeans"] for p, n in per_path.items() if "kmeans" in n},
+        "kernels": {k: compiled[k] for k in ("kmeans_pass", "kmeans_update", "kmeans_seed")},
     })
     say(json.dumps({"main_path": speed, "quality": quality, "training": train,
                     "c2_serving": speed_c2, "c2_quality": quality_c2, "c2_training": train_c2,
