@@ -43,6 +43,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import json
 import os
 import time
@@ -57,13 +58,13 @@ import amss_tpu_torch.ops.kernels.kmeans  # noqa: F401
 import amss_tpu_torch.ops.kernels.ola  # noqa: F401
 from amss_tpu_torch.ckpt.checkpoint import msgpack_restore, msgpack_serialize, to_host
 from amss_tpu_torch.ckpt.tree import named_from_jax
-from amss_tpu_torch.infer.long import chunk_layout, stitch_chunks
+from amss_tpu_torch.infer.long import chunk_layout, chunk_rows, stitch_chunks
 from amss_tpu_torch.infer.quantize import (
     dequantize_state_dict,
     quantize_state_dict,
     quantized_fraction,
 )
-from amss_tpu_torch.infer.streaming import RTFMeter
+from amss_tpu_torch.infer.streaming import BucketedServing, RTFMeter, frame_mask
 from amss_tpu_torch.utils.config import FrontConfig
 from amss_tpu_torch.utils.device import resolve_device, synchronize
 
@@ -311,16 +312,17 @@ def _load(path: str):
     return torch.export.load(path).module()
 
 
-class ServingArtifact:
+class ServingArtifact(BucketedServing):
     """Run an exported serving directory with no model code and no tracing::
 
         art = ServingArtifact("/path/to/export")
         outs = art.separate_all(list_of_waves)   # [S, T_orig] each
 
-    Bucketing, zero padding and frame masks are ``StreamingSeparator``'s;
-    groups are padded to the exported batch with zero rows.  Each bucket's
-    program is loaded at its first use and run once on zeros, booked as
-    warm-up.  The device is ``cuda`` unless ``device`` names another."""
+    Bucketing, zero padding, frame masks and the meter are
+    ``StreamingSeparator``'s, the one loop of ``infer/streaming.py``; groups
+    are padded to the exported batch with zero rows.  Each bucket's program is
+    loaded at its first use and run once on zeros, booked as warm-up.  The
+    device is ``cuda`` unless ``device`` names another."""
 
     def __init__(self, path: str, device=None):
         self.path = path
@@ -332,11 +334,9 @@ class ServingArtifact:
         self.n_speakers = self.meta["n_speakers"]
         self.sample_rate = self.meta["sample_rate"]
         self.buckets = sorted(self.meta["buckets"], key=lambda b: b["length"])
+        self.lengths = tuple(b["length"] for b in self.buckets)
         self._fns: dict[int, object] = {}  # length -> loaded program
         self.meter = RTFMeter()
-
-    def _frames(self, n: int) -> int:
-        return max(self.front.frames_for(n), 0)
 
     def _bucket_for(self, n: int) -> dict:
         for b in self.buckets:
@@ -347,28 +347,30 @@ class ServingArtifact:
             f"({self.buckets[-1]['length']}): the exact-shape API does not chunk; "
             "separate_all and separate_long take over-bucket audio")
 
-    def _call(self, fn, mix: np.ndarray, fmask: np.ndarray) -> torch.Tensor:
+    def _call(self, fn, mix: torch.Tensor, fmask: torch.Tensor) -> torch.Tensor:
         with _fp32():
-            return fn(self.params, torch.from_numpy(mix).to(self.device),
-                      torch.from_numpy(fmask).to(self.device))
+            return fn(self.params, mix, fmask)
 
-    def _program(self, bucket: dict):
+    def _loaded(self, bucket: dict):
         t = bucket["length"]
         if t not in self._fns:
             t0 = time.perf_counter()
             fn = _load(os.path.join(self.path, bucket["files"][self.device.type]))
-            self._call(fn, np.zeros((self.batch, t), np.float32),
-                       np.ones((self.batch, bucket["frames"]), np.float32))
+            self._call(fn, torch.zeros((self.batch, t), device=self.device),
+                       torch.ones((self.batch, bucket["frames"]), device=self.device))
             synchronize(self.device)
             self.meter.warmup_seconds += time.perf_counter() - t0
             self._fns[t] = fn
         return self._fns[t]
 
-    def _masks(self, bucket: dict, n_valid) -> np.ndarray:
-        fmask = np.zeros((self.batch, bucket["frames"]), np.float32)
-        for j, n in enumerate(n_valid):
-            fmask[j, : self._frames(int(n))] = 1.0
-        return fmask
+    def _program(self, bucket: int, rows: int):
+        return functools.partial(self._call, self._loaded(self._bucket_for(bucket)))
+
+    def _warm_long(self) -> None:
+        self._loaded(self.buckets[-1])
+
+    def _long(self, wave: np.ndarray) -> np.ndarray:
+        return self.separate_long(wave)
 
     def separate_batch(self, mix: np.ndarray, n_valid: np.ndarray | None = None) -> np.ndarray:
         """One exact-shape batch [B, T]: T an exported bucket, B the exported
@@ -380,79 +382,31 @@ class ServingArtifact:
             raise ValueError(
                 f"exact-shape API: got {mix.shape}, exported shape is "
                 f"({self.batch}, {bucket['length']}); use separate_all for ragged inputs")
-        fn = self._program(bucket)
-        fmask = self._masks(bucket, [t] * b if n_valid is None else n_valid)
-        return self._call(fn, mix.astype(np.float32), fmask).cpu().numpy()
+        fmask = frame_mask(self.front, t, [t] * b if n_valid is None else n_valid, b)
+        return self._call(self._loaded(bucket),
+                          torch.from_numpy(mix.astype(np.float32)).to(self.device),
+                          torch.from_numpy(fmask).to(self.device)).cpu().numpy()
 
     def separate_all(self, waves: list[np.ndarray]) -> list[np.ndarray]:
         """Variable-length utterances -> [S, T_orig] each, in input order, as
         ``StreamingSeparator.separate_all``: every group is launched before
         any result is copied back.  Utterances longer than the largest bucket
         take ``separate_long``, never truncated."""
-        results: list[np.ndarray | None] = [None] * len(waves)
-        max_bucket = self.buckets[-1]["length"]
-        for i, w in enumerate(waves):
-            if len(w) > max_bucket:
-                self._program(self.buckets[-1])
-                t0 = time.perf_counter()
-                results[i] = self.separate_long(w)
-                self.meter.compute_seconds += time.perf_counter() - t0
-                self.meter.audio_seconds += len(w) / self.sample_rate
-                self.meter.utterances += 1
-                self.meter.calls += 1
-        order = sorted((i for i in range(len(waves)) if results[i] is None),
-                       key=lambda i: len(waves[i]))
-        groups: list[list[int]] = []
-        current = None
-        for i in order:
-            bkt = self._bucket_for(len(waves[i]))["length"]
-            if not groups or bkt != current or len(groups[-1]) >= self.batch:
-                groups.append([])
-            current = bkt
-            groups[-1].append(i)
-        packed = []
-        for g in groups:
-            bucket = self._bucket_for(max(len(waves[i]) for i in g))
-            mix = np.zeros((self.batch, bucket["length"]), np.float32)
-            for j, i in enumerate(g):
-                mix[j, : len(waves[i])] = waves[i]
-            packed.append((self._program(bucket), mix,
-                           self._masks(bucket, [len(waves[i]) for i in g])))
-        t0 = time.perf_counter()
-        outs = [self._call(fn, mix, fmask) for fn, mix, fmask in packed]
-        for est, g in zip(outs, groups):
-            est_np = est.cpu().numpy()
-            for j, i in enumerate(g):
-                results[i] = est_np[j, :, : len(waves[i])]
-                self.meter.audio_seconds += len(waves[i]) / self.sample_rate
-                self.meter.utterances += 1
-        synchronize(self.device)
-        self.meter.compute_seconds += time.perf_counter() - t0
-        self.meter.calls += len(groups)
-        return results  # type: ignore[return-value]
+        return self._serve(waves, self.batch, pad_to=self.batch)
 
     def separate_long(self, wave: np.ndarray) -> np.ndarray:
         """Audio of any length -> [S, len(wave)] through the largest bucket's
-        program: chunks overlapping as ``infer/long.py`` cuts them, in groups
-        of the exported batch (all launched, one copy back), stitched by the
-        same ``stitch_chunks``."""
-        bucket = self.buckets[-1]
-        chunk = bucket["length"]
+        program: chunks overlapping as ``infer/long.py`` cuts them, launched
+        in groups of the exported batch through ``separate_all``'s loop (its
+        meter left alone), stitched by the same ``stitch_chunks``."""
+        chunk = self.lengths[-1]
         t = len(wave)
         if t <= chunk:
             return self.separate_all([wave])[0]
         overlap, starts, t_pad = chunk_layout(t, chunk)
-        n_groups = -(-len(starts) // self.batch)
-        rows = np.zeros((n_groups * self.batch, chunk), np.float32)
-        for i, s in enumerate(starts):
-            part = wave[s : s + chunk]
-            rows[i, : len(part)] = part
-        fn = self._program(bucket)
-        fmask = np.ones((self.batch, bucket["frames"]), np.float32)
-        outs = [self._call(fn, rows[g * self.batch : (g + 1) * self.batch], fmask)
-                for g in range(n_groups)]
-        est = torch.cat(outs)[: len(starts)].cpu().numpy()
-        return stitch_chunks(est, starts, overlap, t, t_pad)
+        rows = chunk_rows(wave, starts, chunk, len(starts))
+        est = self._serve(list(rows), self.batch, pad_to=self.batch, meter=RTFMeter())
+        return stitch_chunks(np.stack(est), starts, overlap, t, t_pad)
 
 
 class RealtimeArtifact:

@@ -82,7 +82,7 @@ def _one_call(model, mix: np.ndarray, **separate_kwargs) -> np.ndarray:
     return model.separate(mix, **separate_kwargs)[0].cpu().numpy()
 
 
-def _chunk_rows(mix: np.ndarray, starts: list[int], chunk: int, rows: int) -> np.ndarray:
+def chunk_rows(mix: np.ndarray, starts: list[int], chunk: int, rows: int) -> np.ndarray:
     """The chunks of ``mix`` as ``[rows, chunk]``, zero rows after them."""
     batch = np.zeros((rows, chunk), np.float32)
     for i, s in enumerate(starts):
@@ -103,7 +103,7 @@ def separate_long(model, mix: np.ndarray, chunk: int, overlap: int = OVERLAP,
     n_chunks = len(starts)
     widths = _group_widths(n_chunks)
     # the chunks, then zero chunks up to the groups' total width
-    batch = torch.from_numpy(_chunk_rows(mix, starts, chunk, sum(widths))).to(_device(model))
+    batch = torch.from_numpy(chunk_rows(mix, starts, chunk, sum(widths))).to(_device(model))
     outs, g0 = [], 0
     for width in widths:
         outs.append(model.separate(batch[g0 : g0 + width], **separate_kwargs))
@@ -141,7 +141,7 @@ def separate_long_sharded(model, mix: np.ndarray, chunk: int, mesh: list | None 
     cb = chunk_batch_per_device
     group = len(mesh) * cb
     rows = -(-n_chunks // group) * group
-    host = torch.from_numpy(_chunk_rows(mix, starts, chunk, rows))
+    host = torch.from_numpy(chunk_rows(mix, starts, chunk, rows))
     on = {dev: host.to(dev) for dev in replicas}  # one copy to each device
     outs = []
     for g0 in range(0, rows, group):

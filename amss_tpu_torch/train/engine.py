@@ -72,13 +72,7 @@ from amss_tpu_torch.ckpt.checkpoint import AsyncCheckpointer, restore_checkpoint
 from amss_tpu_torch.data.device_corpus import DeviceCorpus
 from amss_tpu_torch.data.mixer import Mixer, Plan
 from amss_tpu_torch.data.prefetch import Prefetcher
-from amss_tpu_torch.models.adapt import AdaptAutoencoder
-from amss_tpu_torch.models.chimera import ChimeraModel
-from amss_tpu_torch.models.dpcl import DPCLModel
 from amss_tpu_torch.models.dprnn import DropoutKey
-from amss_tpu_torch.models.l41 import L41Model
-from amss_tpu_torch.models.sepformer import SepFormerModel
-from amss_tpu_torch.models.tasnet import TasNetModel
 from amss_tpu_torch.ops.metrics import sdr_improvement
 from amss_tpu_torch.parallel.mesh import all_reduce_mean, broadcast_tensors, rank_and_world
 from amss_tpu_torch.train.optim import Adam, AdamState, make_schedule
@@ -95,17 +89,14 @@ from amss_tpu_torch.utils.profiling import (
     TRAIN_STEP,
     span,
 )
-from amss_tpu_torch.weights import jax_tree, load_model_from_run, named_from_jax
-
-_MODELS = {"dpcl": DPCLModel, "adapt_ae": AdaptAutoencoder, "tasnet": TasNetModel,
-           "l41": L41Model, "chimera": ChimeraModel, "sepformer": SepFormerModel}
+from amss_tpu_torch.weights import MODELS, jax_tree, load_model_from_run, named_from_jax
 
 
 def make_model(cfg: ModelConfig, base_run: str | None = None, device=None) -> torch.nn.Module:
     """A model of ``cfg.kind``; an enhance model over the trained separator
     of the run dir ``base_run``, loaded on ``device``."""
-    if cfg.kind in _MODELS:
-        return _MODELS[cfg.kind](cfg)
+    if cfg.kind in MODELS:
+        return MODELS[cfg.kind](cfg)
     if cfg.kind == "enhance":
         from amss_tpu_torch.models.enhance import EnhancerModel
 

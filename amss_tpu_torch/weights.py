@@ -38,6 +38,7 @@ from amss_tpu_torch.ckpt.tree import (  # noqa: F401  (the port's callers import
     lstm_state,
     named_from_jax,
 )
+from amss_tpu_torch.models.adapt import AdaptAutoencoder
 from amss_tpu_torch.models.chimera import ChimeraModel
 from amss_tpu_torch.models.dpcl import DPCLModel
 from amss_tpu_torch.models.enhance import EnhancerModel
@@ -47,8 +48,10 @@ from amss_tpu_torch.models.tasnet import TasNetModel
 from amss_tpu_torch.utils.config import ModelConfig, recipe_from_dict
 from amss_tpu_torch.utils.device import resolve_device
 
-_MODELS = {"dpcl": DPCLModel, "tasnet": TasNetModel, "l41": L41Model,
-           "chimera": ChimeraModel, "sepformer": SepFormerModel}
+# a model's kind -> its class (``train/engine.py::make_model`` reads it too);
+# the enhancer, built over its base separator, is not in it
+MODELS = {"dpcl": DPCLModel, "adapt_ae": AdaptAutoencoder, "tasnet": TasNetModel,
+          "l41": L41Model, "chimera": ChimeraModel, "sepformer": SepFormerModel}
 Separator = DPCLModel | TasNetModel | L41Model | ChimeraModel | SepFormerModel | EnhancerModel
 
 
@@ -72,8 +75,8 @@ def params_from_jax(cfg: ModelConfig, params: dict, device=None,
         if base is None:
             raise ValueError("an enhance model needs its base separator")
         model = EnhancerModel(cfg, base)
-    elif cfg.kind in _MODELS:
-        model = _MODELS[cfg.kind](cfg)
+    elif cfg.kind in MODELS and cfg.kind != "adapt_ae":
+        model = MODELS[cfg.kind](cfg)
     else:
         raise ValueError(f"model kind {cfg.kind!r} has no separator to load")
     sep = params["separator"]

@@ -110,8 +110,9 @@ Phases, each printing its wall seconds:
 19. the BLSTM stack's dropout on the card (cuDNN a layer at a time) against
    the loop with the same masks; c6 with the DPRNN trunk (width 128, 6
    blocks, K = 32) at full width for DP_STEPS steps with phase 5's checks, served on the card against the CPU
-   with a padded utterance in its bucket, and one separate call's stages;
-   B1 and B2 launch 0 times (the gate is closed at 32/16);
+   with a padded utterance in its bucket, and the spans of one served call
+   (``tools/stage_times.py``); B1 and B2 launch 0 times (the gate is closed
+   at 32/16);
 20. c6 with the DPT trunk (width 192, 6 blocks, 4 heads, dropout 0.1) as
    phase 19, its first step against the CPU at rate 0 and its training at
    0.1;
@@ -130,8 +131,8 @@ Phases, each printing its wall seconds:
    no host sync, and the valid loss falling;
 23. evaluation: ``evaluate_separation(bss=True, per_utt=True,
    with_stoi=True)`` on phase 4's estimates, its SI-SDRi phase 4's own, SDRi
-   and STOIi gated (EVAL_SDRI_MIN_DB, EVAL_STOI_I_MIN), the host seconds of
-   BSS-Eval and STOI printed;
+   and STOIi gated (EVAL_SDRI_MIN_DB, EVAL_STOI_I_MIN), the call's seconds
+   printed;
 24. the c1 artifact: ``checkpoints/c1_dpcl`` exported for cuda
    (``infer/export.py``, buckets 16384 and 64000, batch 8) and served from a
    fresh process that imports no model module: phase 3's utterances twice
@@ -2429,11 +2430,11 @@ def check_blstm_dropout() -> dict:
 def phase_dual_path(trunk: str, store, workdir: str) -> tuple[dict, dict]:
     """c6 with the ``trunk`` (dprnn or dpt) trained with phase 5's checks,
     served on the card against the CPU (one utterance padded in its bucket)
-    and scored, and one separate call's stages; returns (results, launches
+    and scored, and the spans of one served call; returns (results, launches
     by path)."""
     from amss_tpu_torch.configs.recipes import c6_dual_path
     from amss_tpu_torch.infer.streaming import BucketSpec, StreamingSeparator
-    from amss_tpu_torch.tools.stage_times import dual_path_stage_times
+    from amss_tpu_torch.tools.stage_times import serving_spans
     from amss_tpu_torch.weights import load_model_from_run
 
     recipe = c6_dual_path(trunk, steps=DP_STEPS, valid_every=DP_STEPS // 2)
@@ -2470,11 +2471,11 @@ def phase_dual_path(trunk: str, store, workdir: str) -> tuple[dict, dict]:
     out["card_cpu_db"] = db.tolist()
     out["quality"], launches[f"c6_{trunk}_quality"] = _gated_quality(
         model, None, f"c6 {trunk} after {DP_STEPS} steps (a cut run)")
-    out["stages"] = dual_path_stage_times(model, BATCH, SECONDS, 10)
-    st = out["stages"]
-    say(f"  c6 {trunk} separate (8 x 8 s): {st['separate_ms']:.3f} ms, stages "
-        f"{ {k: round(v, 3) for k, v in st['stage_ms'].items()} }, one block "
-        f"{ {k: round(v, 3) for k, v in st['trunk_parts_ms'].items()} }")
+    out["spans"] = serving_spans(model, calls=1)
+    st = out["spans"]
+    say(f"  c6 {trunk} served call ({BATCH} x {SECONDS} s, after a warm one): "
+        f"{st['call_wall_ms']:.3f} ms, device ms by span "
+        f"{ {k: round(v['device_ms'], 3) for k, v in st['spans'].items() if v['device_ms']} }")
     return out, launches
 
 
@@ -2679,12 +2680,13 @@ def phase_train_c6_corrupt(store, workdir: str) -> tuple[dict, dict]:
 
 def phase_eval(quality: dict, kept: dict) -> dict:
     """``evaluate_separation`` on phase 4's estimates on the card: its
-    SI-SDRi phase 4's, SDRi and STOIi gated, the host parts timed."""
-    from amss_tpu_torch.tools.stage_times import timed_evaluation
+    SI-SDRi phase 4's, SDRi and STOIi gated, the whole call timed."""
+    from amss_tpu_torch.infer.evaluate import evaluate_separation
 
     est, refs, mixes = (torch.from_numpy(kept[k]).cuda() for k in ("est", "refs", "mixes"))
-    out = timed_evaluation(est, refs, mixes)
-    q = out.pop("result")
+    t0 = time.perf_counter()
+    q = evaluate_separation(est, refs, mixes, bss=True, per_utt=True, with_stoi=True)
+    out = {"evaluate_separation_s": time.perf_counter() - t0}
     cols = ("si_sdri", "sdri", "sir", "sar", "stoi", "stoi_i")
     if q["n"] != QUALITY_N or not np.isfinite([q[k] for k in cols]).all():
         raise AssertionError(f"evaluation of {q['n']} mixtures: {q}")
@@ -4347,9 +4349,8 @@ def main() -> None:
     say(f"evaluation (phase 4's {QUALITY_N} estimates) on {card}: si_sdri "
         f"{evaluation['si_sdri']:.4f} dB, sdri {evaluation['sdri']:.4f} dB (gate "
         f"{EVAL_SDRI_MIN_DB}), sir {evaluation['sir']:.4f}, sar {evaluation['sar']:.4f}, "
-        f"stoi_i {evaluation['stoi_i']:.4f} (gate {EVAL_STOI_I_MIN}); host s "
-        f"{evaluation['host_s']}, whole {evaluation['evaluate_separation_s']:.2f} s, "
-        f"SI-SDR on the card {evaluation['si_sdr_device_ms']:.3f} ms")
+        f"stoi_i {evaluation['stoi_i']:.4f} (gate {EVAL_STOI_I_MIN}); the call "
+        f"{evaluation['evaluate_separation_s']:.2f} s")
     say(f"phase 23 evaluation: {time.perf_counter() - t0:.2f} s")
 
     with tempfile.TemporaryDirectory(prefix="amss_serve_") as workdir:

@@ -80,6 +80,20 @@ def test_weights_round_trip(models):
         assert n == m and torch.equal(a, b), n
 
 
+def test_the_autoencoder_builds_but_has_no_separator_to_load():
+    """One table maps a kind to its class (``weights.py::MODELS``):
+    ``make_model`` builds c2's pretraining autoencoder from it, and
+    ``params_from_jax``, which loads separators, refuses that kind."""
+    from amss_tpu_torch.configs.recipes import c2_pretrain_adapt
+    from amss_tpu_torch.models.adapt import AdaptAutoencoder
+    from amss_tpu_torch.train.engine import make_model
+
+    cfg = c2_pretrain_adapt().model
+    assert type(make_model(cfg)) is AdaptAutoencoder
+    with pytest.raises(ValueError, match="model kind 'adapt_ae' has no separator to load"):
+        params_from_jax(cfg, {"front": {}, "separator": {}}, device="cpu")
+
+
 def test_embeddings_match(models, mixes):
     jm, jp, tm = models
     codes, _ = jm.front.encode(jp["front"], jnp.asarray(mixes))

@@ -6,7 +6,9 @@ seeds.
 * The JAX test's tiny TasNet: the port's artifact against the JAX package's
   ``ServingArtifact`` and against the port's live ``StreamingSeparator`` on a
   ragged corpus, atol 2e-5 (the JAX test's own bound; float32 sums in other
-  orders), the exact batch API, and long-form through the artifact.
+  orders); against the live path alone on a corpus with an utterance shorter
+  than one window, a ragged group and an over-bucket utterance; the exact
+  batch API, and long-form through the artifact.
 * A tiny c1 at STFT 256/64, where the gate is open: the exported graph holds
   the two kernels' operators, and a fresh process separates through the
   artifact with no model module imported.
@@ -27,7 +29,7 @@ from amss_tpu.infer.export import export_serving as j_export
 from amss_tpu.models.tasnet import TasNetModel as JTasNet
 from amss_tpu_torch.infer.export import ServingArtifact, export_serving
 from amss_tpu_torch.infer.long import separate_long
-from amss_tpu_torch.infer.streaming import BucketSpec, StreamingSeparator
+from amss_tpu_torch.infer.streaming import BucketSpec, StreamingSeparator, frame_mask
 from amss_tpu_torch.models.dpcl import DPCLModel
 from amss_tpu_torch.utils.config import FrontConfig, ModelConfig, SeparatorConfig
 from amss_tpu_torch.weights import params_from_jax
@@ -95,16 +97,25 @@ def test_programs_hold_no_parameter(tasnet):
     assert ep.example_inputs is None
 
 
-def test_artifact_matches_jax_artifact_and_live(tasnet):
+@pytest.mark.parametrize("lengths,calls,against_jax", [
+    ([900, 1024, 2000, 4096, 3000], 2, True),
+    # shorter than one window (a negative frame count: ROADMAP C.4, the JAX
+    # side's fault, so the live path alone), a ragged group, over-bucket
+    ([5, 600, 9000, 700, 900, 1024, 2000, 3000, 3500, 4096], 4, False),
+], ids=["jax_and_live", "live_short_ragged_long"])
+def test_artifact_matches_jax_artifact_and_live(tasnet, lengths, calls, against_jax):
     model, p_dir, j_dir = tasnet
-    waves = _waves([900, 1024, 2000, 4096, 3000])
+    waves = _waves(lengths)
     art = ServingArtifact(p_dir, device="cpu")
     got = art.separate_all(waves)
-    want = JArtifact(j_dir).separate_all(waves)
-    live = StreamingSeparator(model, buckets=BucketSpec(lengths=LENGTHS),
-                              device="cpu").separate_all(waves, max_batch=4)
-    assert art.meter.utterances == len(waves) and art.meter.calls == 2
+    sep = StreamingSeparator(model, buckets=BucketSpec(lengths=LENGTHS), device="cpu")
+    live = sep.separate_all(waves, max_batch=4)
+    assert art.meter.utterances == sep.meter.utterances == len(waves)
+    assert art.meter.calls == sep.meter.calls == calls
     assert art.meter.warmup_seconds > 0 and np.isfinite(art.meter.rtf)
+    short = frame_mask(art.front, LENGTHS[0], [min(lengths)], 2)  # the loop's masks
+    assert short.sum() == max(art.front.frames_for(min(lengths)), 0) and not short[1].any()
+    want = JArtifact(j_dir).separate_all(waves) if against_jax else live
     for g, w, v, x in zip(got, want, live, waves):
         assert g.shape == w.shape == (2, len(x))
         np.testing.assert_allclose(g, w, atol=ATOL)

@@ -83,6 +83,27 @@ def test_no_banned_import_in_source(path):
             assert n.split(".")[0] not in BANNED, f"{path.name}:{node.lineno} imports {n}"
 
 
+def test_stage_times_reaches_the_models_through_public_names():
+    """The span reader imports no ``_``-prefixed name and no model module, and
+    reads no ``_``-prefixed attribute, so a model's internals may change
+    under it."""
+    path = REPO / "amss_tpu_torch" / "tools" / "stage_times.py"
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.ImportFrom) and node.module != "__future__":
+            names = [node.module or ""] + [f"{node.module}.{a.name}" for a in node.names]
+        elif isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.Attribute):
+            assert not node.attr.startswith("_"), f"{path.name}:{node.lineno} reads {node.attr}"
+            continue
+        else:
+            continue
+        for n in names:
+            parts = n.split(".")
+            assert not any(p.startswith("_") for p in parts), f"{path.name}:{node.lineno} {n}"
+            assert parts[:2] != ["amss_tpu_torch", "models"], f"{path.name}:{node.lineno} {n}"
+
+
 def test_streaming_separator_raises_without_cuda(monkeypatch):
     from amss_tpu_torch.infer.streaming import StreamingSeparator
 

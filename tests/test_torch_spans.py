@@ -146,16 +146,19 @@ def test_warm_up_runs_the_model_inside_serve_pack():
     assert [r.name for r in kids[pack.id]] == MODELS["c1"][1]
 
 
-def _tiny_trainer(tmp_path):
-    make_synthetic_corpus(str(tmp_path / "corpus"), n_speakers=6, seconds_per_speaker=1.0)
+def _tiny_recipe():
     r = recipes.c6_tasnet()
     model = dataclasses.replace(
         r.model, front=dataclasses.replace(r.model.front, n_filters=16, filter_len=16, stride=8),
         sep=dataclasses.replace(r.model.sep, hidden=8, blocks=2, repeats=1))
     train = dataclasses.replace(r.train, batch_size=2, chunk_samples=2048, steps=3,
                                 valid_every=3, lr_schedule="const")
-    recipe = dataclasses.replace(r, model=model, train=train)
-    tr = Trainer(recipe, SpeakerStore(str(tmp_path / "corpus")),
+    return dataclasses.replace(r, model=model, train=train)
+
+
+def _tiny_trainer(tmp_path):
+    make_synthetic_corpus(str(tmp_path / "corpus"), n_speakers=6, seconds_per_speaker=1.0)
+    tr = Trainer(_tiny_recipe(), SpeakerStore(str(tmp_path / "corpus")),
                  workdir=str(tmp_path / "runs"), device="cpu")
     tr.load_state(tr.init_state())
     return tr
@@ -198,6 +201,42 @@ def test_a_training_step_and_the_prefetch_thread(tmp_path):
     assert len(draws) == len(puts) == steps
     for r in draws + puts:
         assert r.parent is None and r.root == r.id and r.thread != main and r.id not in kids
+
+
+def test_stage_times_reads_the_layers_of_served_calls(monkeypatch):
+    """``tools/stage_times.py`` reports the model's layer spans under
+    ``serve.batch``, per call, the warm call (and its warm-up inside
+    ``serve.pack``) left out; on the CPU no device time is read."""
+    from amss_tpu_torch.tools import stage_times
+
+    monkeypatch.setattr(stage_times, "BATCH", 2)
+    monkeypatch.setattr(stage_times, "SECONDS", 1)
+    out = stage_times.serving_spans(_c1(), calls=2)
+    table = out["spans"]
+    assert out["device"] == "cpu" and out["calls"] == 2 and out["call_wall_ms"] > 0
+    batch = "serve.job > serve.batch"
+    assert list(table) == ["serve.job", "serve.job > serve.pack", batch] + [
+        f"{batch} > {layer}" for layer in MODELS["c1"][1]] + [
+        "serve.job > serve.copy_out", "serve.job > sync.end"]
+    for row in table.values():
+        assert row["roots"] == 2 and row["host_ms"] > 0 and row["device_ms"] is None
+
+
+def test_stage_times_reads_train_steps(monkeypatch):
+    """``stage_times --train``: ``train.step`` and its children per step, the
+    prefetch thread's ``train.draw`` and ``train.put`` per draw."""
+    from amss_tpu_torch.tools import stage_times
+
+    monkeypatch.setattr(stage_times, "SPEAKERS", 6)
+    monkeypatch.setattr(stage_times, "SPEAKER_SECONDS", 1.0)
+    out = stage_times.training_spans(_tiny_recipe(), steps=2, device="cpu")
+    table = out["spans"]
+    assert out["device"] == "cpu" and out["steps"] == 2 and out["step_wall_ms"] > 0
+    for child in ("", " > train.gather", " > train.forward", " > train.forward > trunk",
+                  " > train.backward", " > train.optimizer", " > train.optimizer > train.clip"):
+        assert table[f"train.step{child}"]["roots"] == 2, child
+    assert table["train.draw"]["roots"] >= 2 and table["train.put"]["roots"] >= 2
+    assert all(row["device_ms"] is None for row in table.values())
 
 
 def test_spans_past_the_cap_are_counted_not_kept(monkeypatch):
