@@ -89,7 +89,10 @@ class SeparatorBase(nn.Module):
               rng: DropoutKey | None = None) -> torch.Tensor:
         """features [B, T', F] -> [B, T', trunk_dim]; ``rng`` is the
         training-time dropout key (None: no dropout)."""
-        with span(TRUNK, device=feats.device):
+        with span(TRUNK, device=feats.device) as rec:
+            if rec is not None and self.cfg.sep.trunk == "blstm":
+                rec.attrs["blstm_path"] = self.blstm.path(feats, self.cfg.sep.dropout, rng,
+                                                          self.compute_dtype)
             return self._trunk(feats, frame_mask, rng)
 
     def _trunk(self, feats: torch.Tensor, frame_mask: torch.Tensor | None,

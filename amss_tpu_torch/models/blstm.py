@@ -2,40 +2,52 @@
 
 The weights live in one ``nn.LSTM(bidirectional=True)``, whose gate order
 (i, f, g, o) is the JAX package's: ``weight_ih = wxᵀ``, ``weight_hh = whᵀ``,
-``bias_ih = b`` and ``bias_hh = 0``, which is frozen (no gradient).  Two
-ways to run them:
+``bias_ih = b`` and ``bias_hh = 0``, which is frozen (no gradient).  Five
+ways to run them; ``BLSTM.path`` picks one from what the call shows (its
+device, the compute dtype, whether autograd records, dropout, export, its
+rows and the hidden size), and the ``trunk`` span records it as
+``blstm_path``:
 
 * ``loop``: an explicit loop with the reference's mask semantics (padded steps
   freeze (h, c) and output 0; the backward direction runs on the flipped
-  input).  It takes any mask and runs on the CPU and in the tests.
+  input), ``ops/kernels/blstm.py::bilstm_layer_ref`` a layer.  It takes any
+  mask.  Every live float32 call on the CPU runs it.
+* ``kernel``: ``ops/kernels/blstm.py::bilstm_layer`` a layer on CUDA: one
+  float32 GEMM for both directions' input projections and one launch of
+  ``csrc/blstm.cu`` over every step of both directions, with ``loop``'s
+  function for any mask, read on the card (no host lengths, no packing).
+  Live float32 calls on CUDA take it where autograd does not record, without
+  dropout, at most ``MAX_ROWS`` rows (the measured crossover with ``packed``)
+  and ``MAX_HIDDEN`` cells; ``lengths`` is not read.
 * ``packed``: cuDNN's LSTM over packed prefix-length sequences.  For a prefix
-  mask, which is all the port's callers build, it computes the same thing; it
-  runs on CUDA, in FP32 (TF32 off), and trains (cuDNN's backward needs the
-  module in training mode).  The lengths come from the caller when it has
-  them on the host; otherwise the mask is copied to the host, once a call.
+  mask it computes ``loop``'s function; it runs on CUDA, in FP32 (TF32 off),
+  and trains (cuDNN's backward needs the module in training mode).  The other
+  live float32 calls on CUDA take it: training, dropout, more rows than
+  ``MAX_ROWS`` (DPRNN's, mostly) or more cells than the kernel takes.  The
+  lengths come from the caller when it has them on the host; otherwise the
+  mask is copied to the host, once a call.
 * ``traced``: two unidirectional ``torch.lstm`` calls a layer over the whole
   bucket, the reverse one on each row reversed within its own length by one
   ``gather``.  It reads no host data, so ``torch.export`` can trace it, and
   it computes ``loop``'s function for prefix masks (it does not check that
-  the mask is one).  Every exported program runs it; live calls keep
-  ``loop`` on the CPU and ``packed`` on CUDA.
+  the mask is one).  Every exported float32 program runs it.
+* ``bf16``: in bfloat16 (``compute_dtype``) every live call, on either
+  device, runs ``loop_bf16``, the JAX package's
+  ``_bilstm_fused_scan(compute_dtype=bf16)``: ``ops/blstm_bf16.py::
+  bilstm_bf16`` a layer, both directions in one loop, each step one batched
+  ``[2, B, H] x [2, H, 4H]`` product; x, h and the weights rounded to bf16,
+  the products summed in float32, the bias, gates, cell state c, h and the
+  mask's freeze in float32.  Its products are ``Bf16Bmm``, whose gradients
+  are rounded to bf16 as JAX's are, the weights' cast made once outside the
+  loop, so that a weight's gradient sums over the steps in bf16, as JAX's
+  scan sums it.  It takes any mask.  cuDNN's own bf16 LSTM keeps h in bf16
+  and is not that function.  Under ``torch.export`` each layer is one
+  operator, ``amss::blstm_bf16_layer``, which runs the same loop when the
+  program runs.
 
 With a dropout key and a rate, dropout follows every layer, the last one
 included, as in the JAX package's ``blstm_stack``; cuDNN then runs one layer
 at a time, copying that layer's weights out of the flat buffer each call.
-
-In bfloat16 (``compute_dtype``) every live call, on either device, runs
-``loop_bf16``, the JAX package's ``_bilstm_fused_scan(compute_dtype=bf16)``:
-``ops/blstm_bf16.py::bilstm_bf16`` a layer, both directions in one loop,
-each step one batched ``[2, B, H] x [2, H, 4H]`` product; x, h and the
-weights rounded to bf16, the products summed in float32, the bias, gates,
-cell state c, h and the mask's freeze in float32.  Its products are
-``Bf16Bmm``, whose gradients are rounded to bf16 as JAX's are, the weights'
-cast made once outside the loop, so that a weight's gradient sums over the
-steps in bf16, as JAX's scan sums it.  It takes any mask.  cuDNN's own bf16
-LSTM keeps h in bf16 and is not that function.  Under ``torch.export`` each
-layer is one operator, ``amss::blstm_bf16_layer``, which runs the same loop
-when the program runs.
 
 ``dense`` is the JAX package's ``dense`` (``blstm.py:43-46``) over an
 ``nn.Linear`` holding ``weight = wᵀ``, in float32 or bfloat16.
@@ -52,7 +64,14 @@ from torch.nn.utils.rnn import PackedSequence, pack_padded_sequence, pad_packed_
 
 # importing ops/blstm_bf16.py registers the operator amss::blstm_bf16_layer
 from amss_tpu_torch.ops.blstm_bf16 import Bf16Bmm, bf16_mm, bilstm_bf16
+from amss_tpu_torch.ops.kernels.blstm import MAX_HIDDEN, bilstm_layer, bilstm_layer_ref
 from amss_tpu_torch.utils.profiling import SYNC_LENGTHS, span
+
+# Past this many rows the kernel's clusters run in more waves than cuDNN's
+# packed steps cost: on an H100 at H = 300 and 765 steps the kernel took 0.89
+# of packed's time a layer at 192 rows and 1.20 at 256 (PERF.md, PR 22).  At
+# H = 128 it still won at 768 rows; no cell runs that many.
+MAX_ROWS = 192
 
 
 def prefix_lengths(mask: torch.Tensor) -> torch.Tensor:
@@ -65,6 +84,24 @@ def prefix_lengths(mask: torch.Tensor) -> torch.Tensor:
     if not torch.equal(m, torch.arange(m.shape[1])[None, :] < lengths[:, None]):
         raise ValueError("the packed BLSTM takes prefix masks only")
     return lengths
+
+
+def blstm_path(device_type: str, dtype: torch.dtype, compute_dtype: torch.dtype, rows: int,
+               hidden: int, grad: bool, dropout: bool, exporting: bool) -> str:
+    """The path (module docstring) of a call on ``device_type`` with input
+    ``dtype``, ``rows`` rows and ``hidden`` cells, with autograd recording
+    (``grad``), with dropout, or under ``torch.export``."""
+    if compute_dtype == torch.bfloat16:
+        return "bf16"
+    if compute_dtype != torch.float32:
+        raise ValueError(f"compute dtype {compute_dtype} is neither float32 nor bfloat16")
+    if exporting:
+        return "traced"
+    if device_type != "cuda":
+        return "loop"
+    if grad or dropout or dtype != torch.float32 or rows > MAX_ROWS or hidden > MAX_HIDDEN:
+        return "packed"
+    return "kernel"
 
 
 class BLSTM(nn.Module):
@@ -96,6 +133,13 @@ class BLSTM(nn.Module):
             else:
                 p.zero_()
 
+    def path(self, x: torch.Tensor, dropout_rate: float = 0.0, rng=None,
+             compute_dtype: torch.dtype = torch.float32) -> str:
+        """The path ``forward`` takes for this call (``blstm_path``)."""
+        return blstm_path(x.device.type, x.dtype, compute_dtype, x.shape[0], self.hidden,
+                          torch.is_grad_enabled(), rng is not None and dropout_rate > 0.0,
+                          torch.compiler.is_exporting())
+
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
                 lengths: torch.Tensor | None = None, dropout_rate: float = 0.0,
                 rng=None, compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -105,25 +149,27 @@ class BLSTM(nn.Module):
         the caller has them: the packed path then copies nothing to the host.
         ``rng`` (a ``models/dprnn.py::DropoutKey``) turns dropout on.
         ``compute_dtype`` bfloat16 runs ``loop_bf16`` on any device."""
-        if compute_dtype == torch.bfloat16:
+        path = self.path(x, dropout_rate, rng, compute_dtype)
+        dropping = rng is not None and dropout_rate > 0.0
+        if path == "bf16":
             if torch.compiler.is_exporting():
-                if rng is not None and dropout_rate > 0.0:
+                if dropping:
                     raise NotImplementedError("an exported BLSTM runs without dropout")
                 h = x
                 for layer in range(self.layers):
                     h = torch.ops.amss.blstm_bf16_layer(h, mask, *self._bf16_weights(layer))
                 return h
             return self.loop_bf16(x, mask, dropout_rate, rng)
-        if compute_dtype != torch.float32:
-            raise ValueError(f"compute dtype {compute_dtype} is neither float32 nor bfloat16")
-        if torch.compiler.is_exporting():
-            if rng is not None and dropout_rate > 0.0:
+        if path == "traced":
+            if dropping:
                 raise NotImplementedError("an exported BLSTM runs without dropout")
             return self.traced(x, mask)
-        cuda = x.device.type == "cuda"
+        if path == "kernel":
+            return self.kernel(x, mask)
+        cuda = path == "packed"
         if cuda and mask is not None and lengths is None:
             lengths = prefix_lengths(mask)
-        if rng is None or dropout_rate <= 0.0:
+        if not dropping:
             return self.packed(x, mask, lengths) if cuda else self.loop(x, mask)
         from amss_tpu_torch.models.dprnn import dropout
 
@@ -131,6 +177,15 @@ class BLSTM(nn.Module):
         for layer, r in enumerate(rng.split(self.layers)):
             h = self.packed(h, mask, lengths, layer) if cuda else self._layer_loop(h, mask, layer)
             h = dropout(h, dropout_rate, r)
+        return h
+
+    def kernel(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        """Every layer through ``bilstm_layer``: on CUDA, one GEMM and one
+        launch of the recurrence kernel a layer; the mask as float32."""
+        m = None if mask is None else mask.to(torch.float32).contiguous()
+        h = x
+        for layer in range(self.layers):
+            h = bilstm_layer(h, m, self._weights(layer, False), self._weights(layer, True))
         return h
 
     def _weights(self, layer: int, reverse: bool):
@@ -142,39 +197,8 @@ class BLSTM(nn.Module):
             getattr(p, "bias_ih" + sfx) + getattr(p, "bias_hh" + sfx),
         )
 
-    def _direction(self, x, mask, layer: int, reverse: bool) -> torch.Tensor:
-        wx, wh, bias = self._weights(layer, reverse)
-        if reverse:
-            x = torch.flip(x, dims=(1,))
-            mask = None if mask is None else torch.flip(mask, dims=(1,))
-        b, t, _ = x.shape
-        hd = self.hidden
-        xproj = x @ wx.T + bias  # input projection hoisted out of the loop
-        h = x.new_zeros((b, hd))
-        c = x.new_zeros((b, hd))
-        outs = []
-        for s in range(t):
-            gates = xproj[:, s] + h @ wh.T
-            i = torch.sigmoid(gates[:, :hd])
-            f = torch.sigmoid(gates[:, hd : 2 * hd])
-            g = torch.tanh(gates[:, 2 * hd : 3 * hd])
-            o = torch.sigmoid(gates[:, 3 * hd :])
-            c_new = f * c + i * g
-            h_new = o * torch.tanh(c_new)
-            if mask is None:
-                h, c = h_new, c_new
-                outs.append(h_new)
-            else:
-                m = mask[:, s, None] > 0
-                c = torch.where(m, c_new, c)
-                h = torch.where(m, h_new, h)
-                outs.append(torch.where(m, h_new, torch.zeros_like(h_new)))
-        out = torch.stack(outs, dim=1)
-        return torch.flip(out, dims=(1,)) if reverse else out
-
     def _layer_loop(self, x, mask, layer: int) -> torch.Tensor:
-        return torch.cat([self._direction(x, mask, layer, False),
-                          self._direction(x, mask, layer, True)], dim=-1)
+        return bilstm_layer_ref(x, mask, self._weights(layer, False), self._weights(layer, True))
 
     def loop(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         h = x

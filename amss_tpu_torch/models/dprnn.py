@@ -302,7 +302,7 @@ def dprnn_stack(
     d = h.shape[-1]
     # the BLSTM's lengths on the host, needed only where cuDNN packs (not in
     # an exported program, whose BLSTM is the traced one, nor in bf16, whose
-    # BLSTM is the loop)
+    # BLSTM is the loop; a path whose rows take the kernel ignores them)
     packs = (x.device.type == "cuda" and not torch.compiler.is_exporting()
              and compute_dtype == torch.float32)
     lengths = path_lengths(t, k, mask, b) if packs else None

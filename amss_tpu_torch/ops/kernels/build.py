@@ -51,6 +51,8 @@ SIGNATURES = {
     "amss_kmeans": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, centroids, masks, partials, batch, n, e, k, tau, stream
     "amss_soft_assignments": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # xproj, w_hh forward, w_hh backward, mask (or null), out, batch, t, hidden, stream
+    "amss_blstm": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

@@ -13,8 +13,11 @@ step, then STEPS steps.  Both run under ``profiling.recording()`` and print
 one JSON line: per span path (``serve.job > serve.batch > trunk``) the median
 over the calls (or steps, draws, puts: each root span) of its host ms and,
 for the layer spans on the card, its device ms, beside the median wall ms of
-a call or a step.  The layers' own code opens the spans, so this reads
-whatever a model does inside them.  Needs a CUDA device.
+a call or a step, and, for a BLSTM trunk, the paths its ``trunk`` spans
+record (``blstm_path``: how many of each) and the recurrence kernel's
+launches a root (``ops/kernels/blstm.py::bilstm_layer.launches``).  The
+layers' own code opens the spans, so this reads whatever a model does inside
+them.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import os
 import statistics
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -33,6 +37,7 @@ import torch
 from amss_tpu_torch.configs.recipes import ALL_RECIPES, c6_dual_path, sepformer
 from amss_tpu_torch.data.synthetic import make_synthetic_corpus
 from amss_tpu_torch.infer.streaming import StreamingSeparator
+from amss_tpu_torch.ops.kernels.blstm import bilstm_layer
 from amss_tpu_torch.train.engine import Trainer, make_model
 from amss_tpu_torch.utils import profiling
 from amss_tpu_torch.weights import load_model_from_run
@@ -92,6 +97,14 @@ def span_table(records) -> dict:
     return table
 
 
+def blstm_record(records, roots: int, launched: int) -> dict:
+    """The ``trunk`` spans' ``blstm_path`` attributes (how many of each) and
+    the recurrence kernel's launches over ``roots`` root spans."""
+    paths = Counter(r.attrs["blstm_path"] for r in records
+                    if r.name == profiling.TRUNK and "blstm_path" in r.attrs)
+    return {"blstm_paths": dict(paths), "blstm_launches_per_root": launched / roots}
+
+
 def _device_name(device: torch.device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
 
@@ -104,14 +117,17 @@ def serving_spans(model, calls: int = CALLS) -> dict:
     rng = np.random.default_rng(0)
     waves = list((rng.standard_normal((BATCH, SECONDS * SAMPLE_RATE)) * 0.3).astype(np.float32))
     wall = []
+    launched = bilstm_layer.launches
     with profiling.recording():
         for _ in range(calls + 1):
             t0 = time.perf_counter()
             sep.separate_all(waves, max_batch=BATCH)
             wall.append((time.perf_counter() - t0) * 1e3)
+    records = profiling.spans()
     return {"device": _device_name(device), "batch": BATCH, "samples": SECONDS * SAMPLE_RATE,
             "calls": calls, "call_wall_ms": statistics.median(wall[1:]),
-            "spans": span_table(profiling.spans())}
+            **blstm_record(records, calls + 1, bilstm_layer.launches - launched),
+            "spans": span_table(records)}
 
 
 def training_spans(r, steps: int = STEPS, device=None) -> dict:
@@ -124,14 +140,16 @@ def training_spans(r, steps: int = STEPS, device=None) -> dict:
         store = make_synthetic_corpus(os.path.join(tmp, "corpus"), n_speakers=SPEAKERS,
                                       seconds_per_speaker=SPEAKER_SECONDS, seed=0)
         tr = Trainer(r, store, workdir=tmp, device=device)
+        launched = bilstm_layer.launches
         with profiling.recording():
             tr.fit(log_every=steps + 1)
         records = profiling.spans()
+        launched = bilstm_layer.launches - launched
     starts = [rec.start_ns for rec in records if rec.name == profiling.TRAIN_STEP]
     return {"device": _device_name(tr.device), "batch": train.batch_size,
             "samples": train.chunk_samples, "steps": steps,
             "step_wall_ms": float(np.median(np.diff(starts)[1:])) / 1e6,
-            "spans": span_table(records)}
+            **blstm_record(records, steps + 1, launched), "spans": span_table(records)}
 
 
 def main() -> None:

@@ -26,10 +26,12 @@
 The span names are the constants below; each layer's code opens its own.
 Serving (``infer/streaming.py``): ``serve.job`` > ``serve.pack``,
 ``serve.batch`` (> the model's), ``serve.copy_out``, ``sync.end``.  The
-model (``models/``): ``front``, ``trunk``, ``head``, ``cluster`` (deep
+model (``models/``): ``front``, ``trunk`` (a BLSTM trunk's carries
+``blstm_path``, the path ``models/blstm.py::BLSTM.path`` takes: ``kernel``,
+``packed``, ``loop``, ``traced`` or ``bf16``), ``head``, ``cluster`` (deep
 clustering's; ``kmeans_launches``, the k-means kernels' launches in it, 0 on
-the CPU), ``decode``, and ``sync.lengths`` where the BLSTM copies its mask to
-the host;
+the CPU), ``decode``, and ``sync.lengths`` where the packed BLSTM copies its
+mask to the host;
 SepFormer's ``trunk`` > ``sepformer.intra``, ``sepformer.inter`` (a stack of
 one repeat each; ``chunks``, ``valid_chunks``, ``rows``).  Training
 (``train/engine.py``): ``train.step`` > ``train.gather``, ``train.forward``,

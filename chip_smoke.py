@@ -24,13 +24,23 @@ Phases, each printing its wall seconds:
    near ties, two runs bit-identical; the blobs timed beside the plain
    version and its bound (one read of the embeddings a pass at 3.35 TB/s);
    then k-means at the main path's size under CUDA's sync debug mode "error";
+2d. the BLSTM's recurrence kernel (``csrc/blstm.cu``, the live gradient-free
+   float32 path) against its plain version (``BLSTM.loop``) and cuDNN's
+   packed path on the card at deep clustering's serving shape ([8, 765, 129]
+   -> 2 x 300, two layers, the last 18 frames of each row masked), within
+   BLSTM_TOL of the output's largest magnitude, two runs bit-identical, and
+   ms a layer of each (eager calls between CUDA events: the kernel with its
+   GEMM, the loop, cuDNN with the host's packing) beside the kernel's FLOP
+   over 67 TFLOP/s;
 2b. gradients: each kernel's autograd (its backward runs the other kernel)
    against torch autograd of its plain version on the card, at the training
    shape, the serving shape and edge shapes, with the backward launches
    counted, and the backward timed at the training shape;
 3. main path, speed: c1 deep clustering on ``checkpoints/c1_dpcl`` served
    through ``StreamingSeparator.separate_all`` (64 utterances of 8 s, batches
-   of 8, two passes), with every kernel's launch count checked;
+   of 8, two passes), with every kernel's launch count checked (the BLSTM
+   kernel's, a launch a layer a call, counted beside ``launch_counts`` as
+   the k-means kernels' are, in every path served this way);
 4. main path, quality: PIT SI-SDR improvement on 64 synthetic two-speaker
    mixtures, which must reach QUALITY_MIN_DB;
 5. training: c1 at the recipe's full width (2x300 BLSTM, E = 20, batch 8 of
@@ -138,11 +148,11 @@ Phases, each printing its wall seconds:
    fresh process that imports no model module: phase 3's utterances twice
    (RTF, utterances/s, B1 and B2 launched from the exported program as
    often as phase 3 launches them) and phase 4's mixtures (SI-SDRi ≥
-   QUALITY_MIN_DB); the traced BLSTM's embeddings against the packed one's
-   (EMBED_TOL of the peak), the artifact's rows against phase 4's live
-   estimates in the best speaker order (a row under AGREE_MIN_DB whose
-   embeddings agree is ROADMAP C.2's seeding tie), and live serving's RTF
-   with each BLSTM path in turns;
+   QUALITY_MIN_DB); the traced BLSTM's embeddings against the live one's,
+   the kernel's (EMBED_TOL of the peak), the artifact's rows against phase
+   4's live estimates in the best speaker order (a row under AGREE_MIN_DB
+   whose embeddings agree is ROADMAP C.2's seeding tie), and live serving's
+   RTF with the kernel and with the traced BLSTM in turns;
 25. int8: c1 exported with int8 parameters, its program on the dequantized
    weights bit for bit the fp32 program's on them, its rows against the live
    model on the dequantized weights, its SI-SDRi and the bytes saved;
@@ -560,6 +570,19 @@ KMEANS_DESIGN = ("one pass over the embeddings a step: a block stages 256 points
                  "weighted sums by cluster to partials in a fixed order; one warp a centroid "
                  "element sums them; no float atomics; 2K + 2 iters + 1 launches a fit, 2 "
                  "for the masks")
+
+# phase 2d: the BLSTM's recurrence kernel against the loop and packed at deep
+# clustering's serving shape, the last BLSTM_PAD frames of each row masked
+# (the serving cell's bucket); float32 sums in other orders: BLSTM_TOL of the
+# output's largest magnitude
+BLSTM_SHAPE = (8, 765, 129)
+BLSTM_HIDDEN = 300
+BLSTM_PAD = 18
+BLSTM_TOL = 1e-5
+BLSTM_DESIGN = ("a cluster of 16 blocks per (direction, tile of rows), W_hh's slice in registers "
+                "(FFMA, float32), h exchanged by st.async into every block's next buffer, counted "
+                "on mbarriers; one launch a layer, both directions, every step, the mask read on "
+                "the card; the input projection one float32 GEMM a layer")
 
 # name -> (source, the TPU kernel it replaces, its design)
 KERNELS = {
@@ -1073,6 +1096,78 @@ def phase_kmeans(gen: torch.Generator) -> dict:
     return out
 
 
+def _eager_ms(fn, calls: int = 10) -> float:
+    """ms a call of ``fn`` launched eagerly, ``calls`` in a row between CUDA
+    events after warm-up: the host's launching included, as serving pays it."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def phase_blstm(gen: torch.Generator) -> dict:
+    """The BLSTM's recurrence kernel against its plain version (``BLSTM.loop``)
+    and cuDNN's packed path at deep clustering's serving shape on the card,
+    and ms a layer of each."""
+    from amss_tpu_torch.models.blstm import BLSTM
+    from amss_tpu_torch.ops.kernels.blstm import bilstm_layer
+
+    b, t, n_in = BLSTM_SHAPE
+    hd = BLSTM_HIDDEN
+    m = BLSTM(n_in, hd, 2)
+    m.init_parameters(torch.Generator().manual_seed(0))
+    m = m.cuda().eval()
+    x = torch.randn(b, t, n_in, generator=gen, device="cuda")
+    mask = torch.ones(b, t, device="cuda")
+    mask[:, t - BLSTM_PAD:] = 0.0
+    lengths = torch.full((b,), t - BLSTM_PAD, dtype=torch.int64)
+    with torch.no_grad():
+        if m.path(x) != "kernel":
+            raise AssertionError(f"the serving shape takes the {m.path(x)} path, not the kernel")
+        before = bilstm_layer.launches
+        got = m(x, mask)
+        again = m(x, mask)
+        if bilstm_layer.launches - before != 4:
+            raise AssertionError(f"two calls launched {bilstm_layer.launches - before} kernels")
+        repeats = bool(torch.equal(got, again))
+        errs = {}
+        for name, want in (("plain", m.loop(x, mask)), ("packed", m.packed(x, mask, lengths))):
+            errs[name] = max_err(got, want) / float(want.abs().max())
+        fwd, bwd = m._weights(0, False), m._weights(0, True)
+        ms = _eager_ms(lambda: bilstm_layer(x, mask, fwd, bwd))
+        plain_ms = _eager_ms(lambda: m._layer_loop(x, mask, 0), calls=2)
+        packed_ms = _eager_ms(lambda: m.packed(x, mask, lengths, 0))
+    say(f"  BLSTM [{b}, {t}, {n_in}] -> 2 x {hd}, 2 layers: kernel against the plain loop "
+        f"{errs['plain']:.3e} and against packed {errs['packed']:.3e} of the peak (tol "
+        f"{BLSTM_TOL:g}), bit-identical on a second run: {repeats}")
+    if not (max(errs.values()) <= BLSTM_TOL and repeats):
+        raise AssertionError(f"the BLSTM kernel: errors {errs}, repeats {repeats}")
+    # a layer's products: the projection and the recurrence, both directions
+    flops = 2.0 * b * t * n_in * 8 * hd + 2 * t * 8.0 * b * hd * hd
+    out = dict(shape=[b, t, n_in], hidden=hd, layers=2, rel_err=errs["plain"],
+               rel_err_packed=errs["packed"], tol=BLSTM_TOL, repeats=repeats, ms_per_layer=ms,
+               plain_ms_per_layer=plain_ms, packed_ms_per_layer=packed_ms, step_us=1e3 * ms / t,
+               flops_per_layer=flops, fp32_bound_ms=flops / PEAK_FP32_FLOPS * 1e3)
+    say(f"  a layer: kernel {ms:.4f} ms ({out['step_us']:.3f} us a step, GEMM included), plain "
+        f"loop {plain_ms:.4f} ms, packed {packed_ms:.4f} ms; FLOP / 67 TFLOP/s "
+        f"{out['fp32_bound_ms']:.4f} ms")
+    return out
+
+
+def blstm_per_call(model) -> int:
+    """The BLSTM kernel's launches in one default ``separate`` call at phase
+    3's batch: one a layer of a float32 BLSTM trunk, none elsewhere."""
+    sep = model.cfg.sep
+    float32 = getattr(model, "compute_dtype", torch.float32) == torch.float32
+    return sep.layers if sep.trunk == "blstm" and float32 else 0
+
+
 def kmeans_per_call(model) -> int:
     """The k-means kernels' launches in one default ``separate`` call: deep
     clustering's fit and soft masks, L41's blind fit, none elsewhere."""
@@ -1090,8 +1185,9 @@ def phase_speed(model, per_call: dict | None = None) -> tuple[dict, dict]:
     """Serve phase 3's utterances twice; ``per_call`` is each kernel's
     launches per batch call (1 each of B1 and B2 by default, and none of the
     optimizer's pair, as in all serving); the k-means kernels' are
-    ``kmeans_per_call``'s."""
+    ``kmeans_per_call``'s, the BLSTM kernel's ``blstm_per_call``'s."""
     from amss_tpu_torch.infer.streaming import BucketSpec, StreamingSeparator
+    from amss_tpu_torch.ops.kernels.blstm import bilstm_layer
     from amss_tpu_torch.ops.kernels.kmeans import kmeans_launches
 
     t = SECONDS * SAMPLE_RATE
@@ -1100,18 +1196,22 @@ def phase_speed(model, per_call: dict | None = None) -> tuple[dict, dict]:
     sep = StreamingSeparator(model, sample_rate=SAMPLE_RATE, buckets=BucketSpec(lengths=(t,)))
     calls = N_UTTS // BATCH
 
+    def counts():
+        return {**launch_counts(), "kmeans": kmeans_launches() - k0,
+                "blstm": bilstm_layer.launches - b0}
+
     reset_launches()
-    k0 = kmeans_launches()
+    k0, b0 = kmeans_launches(), bilstm_layer.launches
     est = sep.separate_all(waves, max_batch=BATCH)  # pass 1 warms the one shape
-    after1 = {**launch_counts(), "kmeans": kmeans_launches() - k0}
+    after1 = counts()
     rtf1 = sep.meter.rtf
     sep.meter.compute_seconds = sep.meter.audio_seconds = 0.0
     sep.meter.utterances = sep.meter.calls = 0
     est = sep.separate_all(waves, max_batch=BATCH)
-    launches = {**launch_counts(), "kmeans": kmeans_launches() - k0}
+    launches = counts()
 
     per_call = {**(per_call or {"framed_matmul": 1, "decode_ola": 1, "multi_adam": 0}),
-                "kmeans": kmeans_per_call(model)}
+                "kmeans": kmeans_per_call(model), "blstm": blstm_per_call(model)}
     for n in launches:
         k = per_call[n]
         if after1[n] != k * (calls + 1) or launches[n] - after1[n] != k * calls:
@@ -2705,7 +2805,7 @@ def phase_eval(quality: dict, kept: dict) -> dict:
 ART_LENGTHS = (16384, 64000)
 ART_CHILD_TIMEOUT_S = 300
 AGREE_MIN_DB = 40.0  # a row of the artifact at least this close to the live path
-EMBED_TOL = 1e-5  # traced against packed BLSTM embeddings, of the peak
+EMBED_TOL = 1e-5  # traced against the live (kernel) BLSTM's embeddings, of the peak
 RT_ART_STREAMS = 16
 
 # Run in a fresh interpreter: separate phase 3's utterances twice and phase
@@ -2755,7 +2855,7 @@ def phase3_waves() -> list:
 @contextlib.contextmanager
 def _traced_blstm(model):
     """Run ``model``'s BLSTM on its ``traced`` path for the block (live
-    calls take ``packed`` on the card)."""
+    calls take the kernel on the card)."""
     model.blstm.forward = lambda x, mask=None, **kw: model.blstm.traced(x, mask)
     try:
         yield
@@ -2765,7 +2865,7 @@ def _traced_blstm(model):
 
 def embeddings_both(model, mixes: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """c1's embeddings of ``mixes`` [n, T] on the card, in batches of BATCH,
-    through the packed BLSTM and through the traced one."""
+    through the live BLSTM (the kernel) and through the traced one."""
     out = ([], [])
     with torch.no_grad():
         for i in range(0, len(mixes), BATCH):
@@ -2819,8 +2919,9 @@ def phase_artifact_c1(model, kept: dict, workdir: str) -> tuple[dict, dict]:
     """c1_dpcl exported for cuda and served from a fresh process with no
     model module; its launches against phase 3's, its SI-SDRi on phase 4's
     mixtures, its rows against phase 4's live estimates, and the traced
-    BLSTM against the packed one (embeddings, and phase 3's RTF)."""
+    BLSTM against the live one, the kernel (embeddings, and phase 3's RTF)."""
     from amss_tpu_torch.infer.export import export_serving
+    from amss_tpu_torch.ops.kernels.blstm import bilstm_layer
 
     out_dir = os.path.join(workdir, "c1_artifact")
     t0 = time.perf_counter()
@@ -2864,31 +2965,45 @@ def phase_artifact_c1(model, kept: dict, workdir: str) -> tuple[dict, dict]:
     if not si_sdri >= QUALITY_MIN_DB:
         raise AssertionError(f"the artifact's SI-SDRi {si_sdri:.3f} dB < {QUALITY_MIN_DB} dB")
 
-    packed, traced = embeddings_both(model, kept["mixes"])
-    peak = np.abs(packed).max()
-    emb_err = np.abs(traced - packed).reshape(len(packed), -1).max(axis=1) / peak
-    say(f"  c1 embeddings, traced against packed BLSTM on the card: {emb_err.max():.3e} of the "
-        f"peak at most (tol {EMBED_TOL:g})")
+    # the live BLSTM is the kernel: a launch a layer of each batch, none traced
+    layers = blstm_per_call(model)
+    b0 = bilstm_layer.launches
+    live, traced = embeddings_both(model, kept["mixes"])
+    want = layers * -(-len(kept["mixes"]) // BATCH)
+    if bilstm_layer.launches - b0 != want:
+        raise AssertionError(f"the live embeddings launched {bilstm_layer.launches - b0} BLSTM "
+                             f"kernels, want {want}")
+    peak = np.abs(live).max()
+    emb_err = np.abs(traced - live).reshape(len(live), -1).max(axis=1) / peak
+    say(f"  c1 embeddings, traced against the live BLSTM (the kernel, {want} launches) on the "
+        f"card: {emb_err.max():.3e} of the peak at most (tol {EMBED_TOL:g})")
     if not emb_err.max() <= EMBED_TOL:
-        raise AssertionError(f"traced and packed embeddings differ by {emb_err.max():.3e}")
+        raise AssertionError(f"traced and live embeddings differ by {emb_err.max():.3e}")
     rows = _rows_against_live("artifact", res["quality"], kept["est"], emb_err)
 
-    # ROADMAP S1.c: phase 3's serving with each BLSTM path, in turns
-    rtf = {"packed": [], "traced": []}
-    for path in ("packed", "traced", "traced", "packed"):
+    # ROADMAP Z.3: phase 3's serving with the live BLSTM (the kernel) and the
+    # traced one, in turns; a turn is two passes of a new separator, the
+    # first with its warm-up call, as phase 3's
+    rtf = {"kernel": [], "traced": []}
+    for path in ("kernel", "traced", "traced", "kernel"):
+        b0 = bilstm_layer.launches
         if path == "traced":
             with _traced_blstm(model):
                 rtf[path].append(_rtf_pass(model, waves))
         else:
             rtf[path].append(_rtf_pass(model, waves))
-    say(f"  live c1 serving (phase 3's utterances, pass 2) with the packed BLSTM: rtf "
-        f"{rtf['packed']}; with the traced one: {rtf['traced']}")
+        want = layers * (2 * calls + 1) if path == "kernel" else 0
+        if bilstm_layer.launches - b0 != want:
+            raise AssertionError(f"a {path} turn launched {bilstm_layer.launches - b0} BLSTM "
+                                 f"kernels, want {want}")
+    say(f"  live c1 serving (phase 3's utterances, pass 2) with the BLSTM kernel: rtf "
+        f"{rtf['kernel']}; with the traced BLSTM: {rtf['traced']}")
     out = dict(export_s=export_s, files=sizes, load_s=child["load_s"],
                warmup_s=child["passes"][0]["warmup_s"], rtf_pass1=child["passes"][0]["rtf"],
                rtf_pass2=child["passes"][1]["rtf"],
                utterances_per_s=child["passes"][1]["utterances_per_s"],
                process_s=child_s, si_sdri_db=si_sdri, embed_err=float(emb_err.max()),
-               rows=rows, live_rtf_packed=rtf["packed"], live_rtf_traced=rtf["traced"])
+               rows=rows, live_rtf_kernel=rtf["kernel"], live_rtf_traced=rtf["traced"])
     return out, child["passes"][1]["launches"]
 
 
@@ -2916,8 +3031,9 @@ def phase_artifact_int8(model, kept: dict, quality: dict, workdir: str) -> dict:
         params_to_jax(model))))
     live = np.stack(StreamingSeparator(deq, sample_rate=SAMPLE_RATE, buckets=BucketSpec(
         lengths=(QUALITY_T,))).separate_all(mixes, max_batch=BATCH))
-    packed, traced = embeddings_both(deq, kept["mixes"])
-    emb_err = np.abs(traced - packed).reshape(len(packed), -1).max(axis=1) / np.abs(packed).max()
+    live_emb, traced = embeddings_both(deq, kept["mixes"])
+    emb_err = (np.abs(traced - live_emb).reshape(len(live_emb), -1).max(axis=1)
+               / np.abs(live_emb).max())
     rows = _rows_against_live("int8 artifact against the live model on the dequantized "
                               "weights", got, live, emb_err)
     si_sdri = _si_sdri(got, kept["refs"], kept["mixes"])
@@ -4161,7 +4277,7 @@ def main() -> None:
         if compiled[name]["HMMA"] + compiled[name]["HGMMA"] == 0:
             raise AssertionError(f"{name}: no tensor-core instruction in its machine code")
     for name in ("multi_adam_norm", "multi_adam_update", "kmeans_pass", "kmeans_update",
-                 "kmeans_seed"):
+                 "kmeans_seed", "blstm"):
         compiled[name] = kernel_facts(ptxas, sass, f"{name}_kernel")
         say(f"  {name}: {compiled[name]}")
     say(f"phase 1 build: build_s {build_s:.2f} (wall {time.perf_counter() - t0:.2f} s)")
@@ -4175,6 +4291,10 @@ def main() -> None:
     kmeans_record = phase_kmeans(gen)
     check_kmeans_needs_no_host_sync(gen)
     say(f"phase 2c k-means: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    blstm_record = phase_blstm(gen)
+    say(f"phase 2d BLSTM kernel: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
     grads = phase_gradients(gen)
@@ -4492,6 +4612,12 @@ def main() -> None:
         "replaces": None, "design": KMEANS_DESIGN, **kmeans_record,
         "launches_per_path": {p: n["kmeans"] for p, n in per_path.items() if "kmeans" in n},
         "kernels": {k: compiled[k] for k in ("kmeans_pass", "kmeans_update", "kmeans_seed")},
+    })
+    record.append({
+        "name": "blstm", "route": "cuda", "source": "amss_tpu_torch/csrc/blstm.cu",
+        "replaces": None, "design": BLSTM_DESIGN, **blstm_record,
+        "launches_per_path": {p: n["blstm"] for p, n in per_path.items() if "blstm" in n},
+        "kernels": {"blstm": compiled["blstm"]},
     })
     say(json.dumps({"main_path": speed, "quality": quality, "training": train,
                     "c2_serving": speed_c2, "c2_quality": quality_c2, "c2_training": train_c2,

@@ -220,6 +220,8 @@ def test_stage_times_reads_the_layers_of_served_calls(monkeypatch):
         "serve.job > serve.copy_out", "serve.job > sync.end"]
     for row in table.values():
         assert row["roots"] == 2 and row["host_ms"] > 0 and row["device_ms"] is None
+    # the BLSTM's path on the CPU, and no launch of the card's recurrence
+    assert list(out["blstm_paths"]) == ["loop"] and out["blstm_launches_per_root"] == 0
 
 
 def test_stage_times_reads_train_steps(monkeypatch):
