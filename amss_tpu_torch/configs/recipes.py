@@ -178,6 +178,29 @@ def sepformer(**over) -> RecipeConfig:
     )
 
 
+def dprnn_tasnet(**over) -> RecipeConfig:
+    """DPRNN-TasNet at its published widths (``models/sepformer.py``; Luo,
+    Chen and Yoshioka, ICASSP 2020, arXiv:1910.06379, its best WSJ0-2mix
+    configuration): the conv front of 64 filters of 2 taps at stride 1, a
+    bottleneck of 64, chunks of 250 frames at hop 125, 6 blocks, each path a
+    one-layer BLSTM of 128 cells a direction and a linear 256 -> 64, two
+    speakers; trained as the paper, Adam at 1e-3, clip 5, on chunks of 4 s
+    (the paper gives no batch: the port's default).  It is no recipe of the
+    JAX package, so not in ``ALL_RECIPES``.  Keyword overrides go to
+    ``TrainConfig``."""
+    return RecipeConfig(
+        name="dprnn_tasnet",
+        model=ModelConfig(
+            kind="dprnn_tasnet",
+            front=FrontConfig(kind="conv", n_filters=64, filter_len=2, stride=1, pool=1),
+            sep=SeparatorConfig(hidden=64, trunk="dprnn", chunk_frames=250, blocks=1, repeats=6,
+                                expansion=2, dropout=0.0),
+            nb_speakers=2,
+        ),
+        train=TrainConfig(**{"chunk_samples": 32000, "lr": 1e-3, "grad_clip": 5.0, **over}),
+    )
+
+
 # The CLI's recipe names, the JAX package's (``amss_tpu/configs/recipes.py``).
 ALL_RECIPES = {
     "c1": c1_stft_dpcl,

@@ -17,8 +17,8 @@ rows and the hidden size), and the ``trunk`` span records it as
   ``csrc/blstm.cu`` over every step of both directions, with ``loop``'s
   function for any mask, read on the card (no host lengths, no packing).
   Live float32 calls on CUDA take it where autograd does not record, without
-  dropout, at most ``MAX_ROWS`` rows (the measured crossover with ``packed``)
-  and ``MAX_HIDDEN`` cells; ``lengths`` is not read.
+  dropout, at most ``MAX_ROWS`` rows (the measured crossover with
+  ``packed`` at H = 300) and ``MAX_HIDDEN`` cells; ``lengths`` is not read.
 * ``packed``: cuDNN's LSTM over packed prefix-length sequences.  For a prefix
   mask it computes ``loop``'s function; it runs on CUDA, in FP32 (TF32 off),
   and trains (cuDNN's backward needs the module in training mode).  The other
@@ -68,9 +68,23 @@ from amss_tpu_torch.ops.kernels.blstm import MAX_HIDDEN, bilstm_layer, bilstm_la
 from amss_tpu_torch.utils.profiling import SYNC_LENGTHS, span
 
 # Past this many rows the kernel's clusters run in more waves than cuDNN's
-# packed steps cost: on an H100 at H = 300 and 765 steps the kernel took 0.89
-# of packed's time a layer at 192 rows and 1.20 at 256 (PERF.md, PR 22).  At
-# H = 128 it still won at 768 rows; no cell runs that many.
+# packed steps cost.  One layer, kernel | packed ms (packed given host
+# lengths) | cuDNN unpacked ms where every row is whole, on an H100 80GB
+# HBM3 at 700 W (PERF.md §6):
+#   H = 300, 765 steps: 8 rows 1.86-1.94 | 14.4-17.5, 128 21.8-22.0 |
+#     24.0-29.6, 160 26.7 | 31.6-32.9, 192 32.6-33.0 | 22.8-36.8, 256
+#     42.4 | 24.3-35.5;
+#   H = 128, 250 steps: 64 rows 1.80 | 9.1-9.3 | 1.26, 128 3.03 | 7.3-10.6
+#     | 1.39, 256 6.0 | 10.9 | 2.68, 512 11.3 | 9.1-9.3 | 4.81;
+#   DPRNN-TasNet's intra rows [3088, 250, 64] 65.4-65.5 | 15.4-15.6 | 24.8
+#     and inter rows [2000, 396, 64], 386 valid, 67.1-67.6 | 16.7-17.5.
+# cuDNN's packed call enqueues its steps one by one, so below a few hundred
+# rows its time is the host's and moves with the host by a third; no
+# bound on rows alone, rows × H or rows × H² separates both widths' probes
+# cleanly.  This one keeps each measured cell shape on its faster side:
+# deep clustering's 8 rows on the kernel, DPRNN-TasNet's thousands on
+# packed.  Unpacked cuDNN, faster still at H = 128, lies 1.1e-5 of the peak
+# from the float64 loop (ROADMAP C.15), the kernel and packed 3-4e-7.
 MAX_ROWS = 192
 
 
@@ -291,11 +305,14 @@ class BLSTM(nn.Module):
                lengths: torch.Tensor | None = None, layer: int | None = None) -> torch.Tensor:
         """cuDNN over every layer, or over ``layer`` alone.  The rows are
         sorted by length on the host and reordered on the device through
-        pinned copies, so a call given ``lengths`` waits for nothing."""
+        pinned copies, so a call given ``lengths`` waits for nothing.
+        Without a mask, ``lengths`` (each at least 1) still pack the call:
+        cuDNN's unpacked float32 LSTM lies further from ``loop`` at H = 128
+        (ROADMAP C.15); with neither, it runs unpacked."""
         flags = torch.backends.cudnn.flags(
             enabled=True, benchmark=False, deterministic=False, allow_tf32=False
         )
-        if mask is None:
+        if mask is None and lengths is None:
             with flags:
                 return self._cudnn(x, layer)
         if lengths is None:
@@ -316,8 +333,9 @@ class BLSTM(nn.Module):
             data = self._cudnn(packed.data, layer, packed.batch_sizes)
         out, _ = pad_packed_sequence(PackedSequence(data, packed.batch_sizes),
                                      batch_first=True, total_length=x.shape[1])
+        out = out.index_select(0, on_device(unorder))
         # rows with no valid frame output 0
-        return out.index_select(0, on_device(unorder)) * mask[..., None]
+        return out if mask is None else out * mask[..., None]
 
 
 class _Bf16Dense(torch.autograd.Function):

@@ -33,7 +33,10 @@ clustering's; ``kmeans_launches``, the k-means kernels' launches in it, 0 on
 the CPU), ``decode``, and ``sync.lengths`` where the packed BLSTM copies its
 mask to the host;
 SepFormer's ``trunk`` > ``sepformer.intra``, ``sepformer.inter`` (a stack of
-one repeat each; ``chunks``, ``valid_chunks``, ``rows``).  Training
+one repeat each; ``chunks``, ``valid_chunks``, ``rows``); DPRNN-TasNet's
+``trunk`` > ``dprnn.intra``, ``dprnn.inter`` (one path of one block, its
+linear, GroupNorm and residual; ``rows`` run, ``steps`` (rows × the grid's
+steps), ``valid_steps`` and the BLSTM's ``blstm_path``).  Training
 (``train/engine.py``): ``train.step`` > ``train.gather``, ``train.forward``,
 ``train.backward``, ``train.optimizer`` (> ``train.clip``; its attributes
 ``tensors`` and ``chunks`` say what the kernel pair of the optimizer took, 0
@@ -72,9 +75,12 @@ TRAIN_DRAW = "train.draw"
 TRAIN_PUT = "train.put"
 SEPFORMER_INTRA = "sepformer.intra"
 SEPFORMER_INTER = "sepformer.inter"
+DPRNN_INTRA = "dprnn.intra"
+DPRNN_INTER = "dprnn.inter"
 
 DEVICE_TIMED = frozenset({FRONT, TRUNK, HEAD, CLUSTER, DECODE, TRAIN_FORWARD, TRAIN_BACKWARD,
-                          TRAIN_OPTIMIZER, SEPFORMER_INTRA, SEPFORMER_INTER})
+                          TRAIN_OPTIMIZER, SEPFORMER_INTRA, SEPFORMER_INTER, DPRNN_INTRA,
+                          DPRNN_INTER})
 CAP = 100_000  # kept records; spans past it are counted in ``SpanList.dropped``
 
 _profiler = torch.autograd.profiler  # its _is_profiler_enabled is read at each call

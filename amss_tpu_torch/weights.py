@@ -43,7 +43,7 @@ from amss_tpu_torch.models.chimera import ChimeraModel
 from amss_tpu_torch.models.dpcl import DPCLModel
 from amss_tpu_torch.models.enhance import EnhancerModel
 from amss_tpu_torch.models.l41 import L41Model
-from amss_tpu_torch.models.sepformer import SepFormerModel
+from amss_tpu_torch.models.sepformer import DPRNNTasNetModel, SepFormerModel
 from amss_tpu_torch.models.tasnet import TasNetModel
 from amss_tpu_torch.utils.config import ModelConfig, recipe_from_dict
 from amss_tpu_torch.utils.device import resolve_device
@@ -51,8 +51,10 @@ from amss_tpu_torch.utils.device import resolve_device
 # a model's kind -> its class (``train/engine.py::make_model`` reads it too);
 # the enhancer, built over its base separator, is not in it
 MODELS = {"dpcl": DPCLModel, "adapt_ae": AdaptAutoencoder, "tasnet": TasNetModel,
-          "l41": L41Model, "chimera": ChimeraModel, "sepformer": SepFormerModel}
-Separator = DPCLModel | TasNetModel | L41Model | ChimeraModel | SepFormerModel | EnhancerModel
+          "l41": L41Model, "chimera": ChimeraModel, "sepformer": SepFormerModel,
+          "dprnn_tasnet": DPRNNTasNetModel}
+Separator = (DPCLModel | TasNetModel | L41Model | ChimeraModel | SepFormerModel
+             | DPRNNTasNetModel | EnhancerModel)
 
 
 def params_to_jax(model: Separator) -> dict:
@@ -65,8 +67,9 @@ def params_to_jax(model: Separator) -> dict:
 def params_from_jax(cfg: ModelConfig, params: dict, device=None,
                     base: Separator | None = None) -> Separator:
     """The model of ``cfg.kind`` (``dpcl``, ``tasnet``, ``l41``, ``chimera``,
-    ``sepformer``, or ``enhance`` over ``base``) holding a JAX parameter tree given as numpy
-    arrays (lists, or dicts keyed "0", "1", ... as a checkpoint stores them).
+    ``sepformer``, ``dprnn_tasnet``, or ``enhance`` over ``base``) holding a
+    JAX parameter tree given as numpy arrays (lists, or dicts keyed "0", "1",
+    ... as a checkpoint stores them).
     Each LSTM direction maps as ``weight_ih = wxᵀ``, ``weight_hh = whᵀ``,
     ``bias_ih = b``, ``bias_hh = 0``; each dense as ``weight = wᵀ``;
     everything else as it is."""

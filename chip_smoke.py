@@ -122,7 +122,9 @@ Phases, each printing its wall seconds:
    blocks, K = 32) at full width for DP_STEPS steps with phase 5's checks, served on the card against the CPU
    with a padded utterance in its bucket, and the spans of one served call
    (``tools/stage_times.py``); B1 and B2 launch 0 times (the gate is closed
-   at 32/16);
+   at 32/16), and the served call launches the recurrence kernel once a
+   layer where ``blstm_path`` gives ``kernel`` at the path's rows (all 12
+   at 4 rows of 32 chunks);
 20. c6 with the DPT trunk (width 192, 6 blocks, 4 heads, dropout 0.1) as
    phase 19, its first step against the CPU at rate 0 and its training at
    0.1;
@@ -219,6 +221,16 @@ Phases, each printing its wall seconds:
    each and the ``train.optimizer`` span's attributes.  Every training path
    above counts the pair's launches (``multi_adam``, two a step) beside B1's
    and B2's, and every serving path none.
+38. DPRNN-TasNet at its published widths
+   (``benchmark/configs/dprnn_luo2020.json``; N 64, L 2, stride 1, chunks of
+   250 at hop 125, 6 blocks of 2 x 128-cell BLSTMs) served through
+   ``StreamingSeparator`` in one padded batch of DPRNN_LENGTHS in the 49152
+   bucket, each row against the benchmark's plain float32 reference
+   (``benchmark/reference/dprnn.py``) on the card within the cell's limit of
+   ``serve.judged_error``; the path each of the 12 BLSTM layers of a call
+   took (the ``dprnn.intra``/``dprnn.inter`` spans' ``blstm_path``) against
+   ``blstm_path``'s rule at their rows, one ``sync.lengths`` a call, and the
+   spans' step counts.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero,
@@ -554,6 +566,13 @@ MADAM_BYTES = 28  # read p, g, m, v and write p, m, v: each byte once
 MADAM_DESIGN = ("two launches a step over every tensor: a static chunk table (<= 4096 elements, "
                 "one block each), the norm pass's float32 partials with no atomics, the update "
                 "pass re-summing them in float64 in every block; float4 loads where aligned")
+
+# phase 38: DPRNN-TasNet at its published widths in one padded batch of the
+# 49152 bucket (8 rows, 35000-48000 samples), against the benchmark's plain
+# reference within the cell's limit (benchmark/limits/, read there)
+DPRNN_CONFIG = os.path.join(REPO, "benchmark", "configs", "dprnn_luo2020.json")
+DPRNN_LIMITS = os.path.join(REPO, "benchmark", "limits", "dprnn_luo2020.offline_wsj.json")
+DPRNN_LENGTHS = (48000, 47000, 45000, 43000, 41000, 39000, 37000, 35000)
 
 # phase 2c: the k-means kernels against the plain version at the serving
 # cell's points a row (765 frames of 129 bins), the last KMEANS_PAD of each
@@ -2527,6 +2546,27 @@ def check_blstm_dropout() -> dict:
     return out
 
 
+def dual_path_blstm_launches(model, rows: int, bucket: int) -> int:
+    """The recurrence kernel's launches in one gradient-free float32 call of
+    ``rows`` rows in ``bucket`` samples on the card: a layer each where
+    ``blstm_path`` gives ``kernel`` at the path's rows (0 for DPT)."""
+    from amss_tpu_torch.models.blstm import blstm_path
+
+    sep = model.cfg.sep
+    if sep.trunk != "dprnn":
+        return 0
+    k = sep.chunk_frames
+    p = -(-model.cfg.front.frames_for(bucket) // k)
+    n = 0
+    for blk in model.dprnn.blocks:
+        for path, n_rows in ((blk.intra, rows * p), (blk.inter, rows * k)):
+            lstm = path.lstm
+            if blstm_path("cuda", torch.float32, model.compute_dtype, n_rows, lstm.hidden,
+                          False, False, False) == "kernel":
+                n += lstm.layers
+    return n
+
+
 def phase_dual_path(trunk: str, store, workdir: str) -> tuple[dict, dict]:
     """c6 with the ``trunk`` (dprnn or dpt) trained with phase 5's checks,
     served on the card against the CPU (one utterance padded in its bucket)
@@ -2534,6 +2574,7 @@ def phase_dual_path(trunk: str, store, workdir: str) -> tuple[dict, dict]:
     by path)."""
     from amss_tpu_torch.configs.recipes import c6_dual_path
     from amss_tpu_torch.infer.streaming import BucketSpec, StreamingSeparator
+    from amss_tpu_torch.ops.kernels.blstm import bilstm_layer
     from amss_tpu_torch.tools.stage_times import serving_spans
     from amss_tpu_torch.weights import load_model_from_run
 
@@ -2553,8 +2594,16 @@ def phase_dual_path(trunk: str, store, workdir: str) -> tuple[dict, dict]:
     waves[1] = waves[1][:DP_PADDED_SAMPLES]
     buckets = BucketSpec(lengths=(QUALITY_T,))
     reset_launches()
+    b0 = bilstm_layer.launches
     card = StreamingSeparator(model, buckets=buckets).separate_all(waves)
     launches[f"c6_{trunk}_serve"] = launch_counts()
+    blstm = bilstm_layer.launches - b0
+    # a fresh separator runs the group's shape once to warm it, then serves it
+    want = 2 * dual_path_blstm_launches(model, len(waves), QUALITY_T)
+    if blstm != want:
+        raise AssertionError(f"c6 {trunk}'s served call launched {blstm} BLSTM kernels, "
+                             f"want {want} (blstm_path at its rows)")
+    out["blstm_launches"] = blstm
     host = StreamingSeparator(cpu, buckets=buckets, device="cpu").separate_all(waves)
     if [c.shape for c in card] != [(2, len(w)) for w in waves] or not all(
             np.isfinite(c).all() for c in card):
@@ -2563,7 +2612,8 @@ def phase_dual_path(trunk: str, store, workdir: str) -> tuple[dict, dict]:
     db = np.array([float(_db(c[None], h[None])[0]) for c, h in zip(card, host)])
     say(f"  c6 {trunk} trained state, card against CPU ({len(waves)} utterances, the second "
         f"{DP_PADDED_SAMPLES} samples in a bucket of {QUALITY_T}): SI-SDR {db.round(2).tolist()} "
-        f"dB (bound {C4_CARD_CPU_MIN_DB}), all finite, launches {launches[f'c6_{trunk}_serve']}")
+        f"dB (bound {C4_CARD_CPU_MIN_DB}), all finite, launches {launches[f'c6_{trunk}_serve']}, "
+        f"BLSTM kernels {blstm}")
     if not (db >= C4_CARD_CPU_MIN_DB).all():
         raise AssertionError(f"c6 {trunk} card against CPU: {db} dB")
     if any(launches[f"c6_{trunk}_serve"].values()):
@@ -4084,6 +4134,89 @@ def convtasnet_luo2019():
                        **p)
 
 
+def phase_dprnn() -> dict:
+    """DPRNN-TasNet at its published widths served through
+    ``StreamingSeparator`` against the benchmark's plain reference on the
+    card, with the BLSTM's path of each of a call's 12 layers counted."""
+    from collections import Counter
+
+    from amss_tpu_torch.infer.streaming import StreamingSeparator
+    from amss_tpu_torch.models.blstm import blstm_path
+    from amss_tpu_torch.models.dprnn import segments
+    from amss_tpu_torch.train.engine import make_model
+    from amss_tpu_torch.utils import profiling
+    from amss_tpu_torch.utils.config import FrontConfig, ModelConfig, SeparatorConfig
+
+    sys.path.insert(0, os.path.join(REPO, "benchmark"))  # the reference imports bm, reference
+    from reference import dprnn as ref
+
+    with open(DPRNN_CONFIG) as f:
+        cfg = json.load(f)
+    with open(DPRNN_LIMITS) as f:
+        tol = json.load(f)["numbers"]["serve.judged_error"]["limit"]
+    p = dict(cfg["port"])
+    mc = ModelConfig(front=FrontConfig(**p.pop("front")), sep=SeparatorConfig(**p.pop("sep")),
+                     **p)
+    model = make_model(mc)
+    model.init_parameters(torch.Generator().manual_seed(38))
+    model = model.cuda().eval()
+    if sum(t.numel() for t in model.parameters()) != cfg["parameters"]:
+        raise AssertionError("DPRNN-TasNet's parameters differ from the configuration's count")
+    gen = np.random.default_rng(38)
+    waves = [(0.1 * gen.standard_normal(n)).astype(np.float32) for n in DPRNN_LENGTHS]
+    torch.backends.cudnn.allow_tf32 = False
+    sep = StreamingSeparator(model, sample_rate=cfg["sample_rate"])
+    sep.separate_all(waves, max_batch=len(waves))  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profiling.recording():
+        outs = sep.separate_all(waves, max_batch=len(waves))
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    kept = profiling.spans()
+    paths = [r for r in kept if r.name in ("dprnn.intra", "dprnn.inter")]
+    took = Counter(f"{r.name}:{r.attrs['blstm_path']}" for r in paths)
+    k, hd = mc.sep.chunk_frames, mc.sep.expansion * mc.sep.hidden
+    own = [segments(mc.front.frames_for(n), k) for n in DPRNN_LENGTHS]
+    grid = segments(mc.front.frames_for(49152), k)
+    rows = {"dprnn.intra": sum(own), "dprnn.inter": len(own) * k}
+    rule = {name: blstm_path("cuda", torch.float32, torch.float32, n, hd, False, False, False)
+            for name, n in rows.items()}
+    want = Counter({f"{name}:{path}": mc.sep.repeats for name, path in rule.items()})
+    steps = {"dprnn.intra": (sum(own) * k, sum(own) * k),
+             "dprnn.inter": (len(own) * k * grid, k * sum(own))}
+    for r in paths:
+        if (r.attrs["rows"], (r.attrs["steps"], r.attrs["valid_steps"])) != (
+                rows[r.name], steps[r.name]):
+            raise AssertionError(f"{r.name}: attributes {r.attrs}, want rows {rows[r.name]}, "
+                                 f"(steps, valid) {steps[r.name]}")
+    if took != want:
+        raise AssertionError(f"the BLSTM paths of a call {dict(took)}, want {dict(want)}")
+    syncs = sum(r.name == "sync.lengths" for r in kept)
+    calls = sum(r.name == "serve.batch" for r in kept)
+    if (syncs, calls) != (1, 1):
+        raise AssertionError(f"{syncs} sync.lengths in {calls} batch calls, want one in one")
+    weights = {n: t.detach() for n, t in model.named_parameters()}
+    errs = []
+    with torch.no_grad():
+        for wave, est in zip(waves, outs):
+            mix = torch.from_numpy(wave).cuda()
+            errs.append(ref.judge(mix, torch.as_tensor(est).cuda(), weights,
+                                  cfg)["serve.judged_error"])
+    device_ms = {name: sum(r.device_ms or 0.0 for r in paths if r.name == name)
+                 for name in rows}
+    out = dict(lengths=list(DPRNN_LENGTHS), own_chunks=own, grid_chunks=grid, rows=rows,
+               blstm_paths=dict(took), rel_err=errs, tol=tol, wall_ms=wall_ms,
+               device_ms=device_ms, syncs_per_call=syncs / calls)
+    say(f"  DPRNN-TasNet [8 x 35000-48000 in 49152] on the card: paths {dict(took)}, "
+        f"rows {rows}, against the reference at most {max(errs):.3e} (limit {tol:g}), a "
+        f"call {wall_ms:.1f} ms, intra/inter device {device_ms} ms, syncs a call "
+        f"{syncs / calls}")
+    if not max(errs) <= tol:
+        raise AssertionError(f"DPRNN-TasNet against the reference: {errs} (limit {tol})")
+    return out
+
+
 def _multi_adam_list(what: str, cfg, gen: torch.Generator) -> dict:
     """Phase 37 on the trainable parameters of ``cfg``: the kernel pair
     against the plain version and the ``torch._foreach_*`` yardstick from one
@@ -4547,6 +4680,10 @@ def main() -> None:
         madam = phase_multi_adam(workdir)
         say(f"phase 37 multi-tensor clip and Adam: {time.perf_counter() - t0:.2f} s")
 
+    t0 = time.perf_counter()
+    dprnn_tasnet = phase_dprnn()
+    say(f"phase 38 DPRNN-TasNet: {time.perf_counter() - t0:.2f} s")
+
     per_path = {"c1_serve": launches, "c1_train": train_launches, "c2_serve": launches_c2,
                 **train_c2_launches, "long_form": long_launches, **serve_c6_launches,
                 **train_c6_launches, "c7_realtime": realtime_launches, **c7_launches,
@@ -4632,7 +4769,7 @@ def main() -> None:
                     "c6_flagship_device_training": flagship, "c1_bf16": c1_bf16,
                     "bf16_dprnn_enh": bf16_more, "sharded_stft": sharded_stft,
                     "long_form_mesh": long_mesh, "ranks": ranks, "c1_bf16_artifact": bf16_artifact,
-                    "multi_adam": madam,
+                    "multi_adam": madam, "dprnn_tasnet": dprnn_tasnet,
                     "card": card,
                     "total_s": time.perf_counter() - t_start}))
     say(card)
