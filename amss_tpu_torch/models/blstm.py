@@ -13,19 +13,23 @@ rows and the hidden size), and the ``trunk`` span records it as
   input), ``ops/kernels/blstm.py::bilstm_layer_ref`` a layer.  It takes any
   mask.  Every live float32 call on the CPU runs it.
 * ``kernel``: ``ops/kernels/blstm.py::bilstm_layer`` a layer on CUDA: one
-  float32 GEMM for both directions' input projections and one launch of
-  ``csrc/blstm.cu`` over every step of both directions, with ``loop``'s
-  function for any mask, read on the card (no host lengths, no packing).
-  Live float32 calls on CUDA take it where autograd does not record, without
-  dropout, at most ``MAX_ROWS`` rows (the measured crossover with
-  ``packed`` at H = 300) and ``MAX_HIDDEN`` cells; ``lengths`` is not read.
+  float32 GEMM for both directions' input projections and one launch of a
+  recurrence kernel over every step of both directions, with ``loop``'s
+  function for any mask, read on the card (no host lengths, no packing):
+  ``csrc/blstm.cu`` up to ``MAX_ROWS`` rows (the measured crossover with
+  ``packed`` at H = 300) and ``MAX_HIDDEN`` cells, ``csrc/blstm_rows.cu``
+  past ``MAX_ROWS`` rows at up to ``ROWS_MAX_HIDDEN`` cells (DPRNN's paths;
+  the limits are ``ops/kernels/blstm.py``'s, its ``takes`` the rule).
+  Live float32 calls on CUDA take it where autograd does not record and
+  without dropout, at the hidden sizes the kernel of their rows takes;
+  ``lengths`` is not read.
 * ``packed``: cuDNN's LSTM over packed prefix-length sequences.  For a prefix
   mask it computes ``loop``'s function; it runs on CUDA, in FP32 (TF32 off),
   and trains (cuDNN's backward needs the module in training mode).  The other
-  live float32 calls on CUDA take it: training, dropout, more rows than
-  ``MAX_ROWS`` (DPRNN's, mostly) or more cells than the kernel takes.  The
-  lengths come from the caller when it has them on the host; otherwise the
-  mask is copied to the host, once a call.
+  live float32 calls on CUDA take it: training, dropout, or more cells than
+  the kernel of their rows takes.  The lengths come from the caller when it
+  has them on the host; otherwise the mask is copied to the host, once a
+  call.
 * ``traced``: two unidirectional ``torch.lstm`` calls a layer over the whole
   bucket, the reverse one on each row reversed within its own length by one
   ``gather``.  It reads no host data, so ``torch.export`` can trace it, and
@@ -64,28 +68,35 @@ from torch.nn.utils.rnn import PackedSequence, pack_padded_sequence, pad_packed_
 
 # importing ops/blstm_bf16.py registers the operator amss::blstm_bf16_layer
 from amss_tpu_torch.ops.blstm_bf16 import Bf16Bmm, bf16_mm, bilstm_bf16
-from amss_tpu_torch.ops.kernels.blstm import MAX_HIDDEN, bilstm_layer, bilstm_layer_ref
+from amss_tpu_torch.ops.kernels.blstm import bilstm_layer, bilstm_layer_ref, takes
 from amss_tpu_torch.utils.profiling import SYNC_LENGTHS, span
 
-# Past this many rows the kernel's clusters run in more waves than cuDNN's
-# packed steps cost.  One layer, kernel | packed ms (packed given host
-# lengths) | cuDNN unpacked ms where every row is whole, on an H100 80GB
-# HBM3 at 700 W (PERF.md §6):
+# The row rule (ops/kernels/blstm.py::takes): up to MAX_ROWS (192) rows
+# csrc/blstm.cu, past them csrc/blstm_rows.cu where H <= ROWS_MAX_HIDDEN
+# (128), else packed.
+# One layer, csrc/blstm.cu | packed ms (packed given host lengths) | cuDNN
+# unpacked ms where every row is whole | csrc/blstm_rows.cu, on an H100 80GB
+# HBM3 at 700 W (PERF.md §6; each kernel with the projection's GEMM):
 #   H = 300, 765 steps: 8 rows 1.86-1.94 | 14.4-17.5, 128 21.8-22.0 |
 #     24.0-29.6, 160 26.7 | 31.6-32.9, 192 32.6-33.0 | 22.8-36.8, 256
-#     42.4 | 24.3-35.5;
+#     42.4 | 24.3-35.5 (csrc/blstm_rows.cu takes no H = 300);
 #   H = 128, 250 steps: 64 rows 1.80 | 9.1-9.3 | 1.26, 128 3.03 | 7.3-10.6
-#     | 1.39, 256 6.0 | 10.9 | 2.68, 512 11.3 | 9.1-9.3 | 4.81;
-#   DPRNN-TasNet's intra rows [3088, 250, 64] 65.4-65.5 | 15.4-15.6 | 24.8
-#     and inter rows [2000, 396, 64], 386 valid, 67.1-67.6 | 16.7-17.5.
+#     | 1.39, 256 6.0 | 10.9 | 2.68, 512 11.3 | 9.1-9.3 | 4.81, 1000 rows
+#     packed 7.0-9.1 | 4.22-4.66;
+#   c6's DPRNN inter rows [256, 125, 128], masked, 3.12-3.13 | 2.46-4.35 |
+#     | 2.03-2.14;
+#   DPRNN-TasNet's intra rows [3088, 250, 64] 65.4-65.5 | 14.7-16.4 | 24.8
+#     | 8.61-8.93 and inter rows [2000, 396, 64], 386 valid, 67.1-67.6 |
+#     16.0-17.0 | | 9.90-10.34.
 # cuDNN's packed call enqueues its steps one by one, so below a few hundred
-# rows its time is the host's and moves with the host by a third; no
-# bound on rows alone, rows × H or rows × H² separates both widths' probes
-# cleanly.  This one keeps each measured cell shape on its faster side:
-# deep clustering's 8 rows on the kernel, DPRNN-TasNet's thousands on
-# packed.  Unpacked cuDNN, faster still at H = 128, lies 1.1e-5 of the peak
-# from the float64 loop (ROADMAP C.15), the kernel and packed 3-4e-7.
-MAX_ROWS = 192
+# rows its time is the host's and moves with the host by a third.
+# csrc/blstm.cu's clusters of 16 carry at most 8 rows each and run in waves
+# past a few dozen rows; csrc/blstm_rows.cu cuts the rows into tiles that
+# fill the card in one wave and wins wherever it was measured past 192 rows
+# at H = 128.  The crossover of the two kernels was not measured, so
+# MAX_ROWS stays where csrc/blstm.cu was measured against packed at H = 300.
+# Unpacked cuDNN lies 1.1e-5 of the peak from the float64 loop
+# (ROADMAP C.15), the kernels and packed 3-7e-7.
 
 
 def prefix_lengths(mask: torch.Tensor) -> torch.Tensor:
@@ -113,9 +124,9 @@ def blstm_path(device_type: str, dtype: torch.dtype, compute_dtype: torch.dtype,
         return "traced"
     if device_type != "cuda":
         return "loop"
-    if grad or dropout or dtype != torch.float32 or rows > MAX_ROWS or hidden > MAX_HIDDEN:
+    if grad or dropout or dtype != torch.float32:
         return "packed"
-    return "kernel"
+    return "kernel" if takes(rows, hidden) else "packed"
 
 
 class BLSTM(nn.Module):

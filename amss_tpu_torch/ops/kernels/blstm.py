@@ -1,5 +1,5 @@
-"""One float32 bidirectional LSTM layer on the card (``csrc/blstm.cu``), and
-its plain version.
+"""One float32 bidirectional LSTM layer on the card (``csrc/blstm.cu`` for
+a few rows, ``csrc/blstm_rows.cu`` for many), and its plain version.
 
 ``bilstm_layer(x, mask, fwd, bwd)``: x ``[B, T, In]``, mask ``[B, T]`` (> 0
 valid, any mask) or None, and each direction's ``(w_ih [4H, In], w_hh
@@ -14,18 +14,25 @@ step-by-step loop that ``models/blstm.py::BLSTM.loop`` runs.  A CUDA tensor
 goes to one float32 GEMM for both directions' input projections
 (``[B·T, In] x [In, 8H]`` plus the bias; TF32 off, as PyTorch's default
 ``torch.backends.cuda.matmul.allow_tf32`` has it for every float32 product
-of the port, and as the trainer sets it) and then one launch of the
+of the port, and as the trainer sets it) and then one launch of a
 recurrence kernel over every step of both directions, which reads the mask
-on the card; anything else raises.  The kernel's arithmetic is float32 FFMA,
-summed in its own order, with precise ``expf`` and ``tanhf``.  Rows past
-what the card's clusters hold at once run in waves of clusters.
+on the card; anything else raises.  Up to ``MAX_ROWS`` rows the launch is
+``csrc/blstm.cu``'s, a chain of latency-bound steps whose clusters of 16
+blocks spread W_hh over 16 SMs for at most 8 rows; past it,
+``csrc/blstm_rows.cu``'s, which cuts the rows into tiles that fill the card
+in one wave, each direction's W_hh held by a cluster of 2.  Both kernels'
+arithmetic is float32 FFMA, summed in their own orders, with precise
+``expf`` and ``tanhf``.
 
 The wrapper takes float32 tensors, ``w_hh`` and the mask contiguous,
-``1 <= B <= MAX_BATCH``, ``1 <= H <= MAX_HIDDEN`` (the largest H whose W_hh
-slice fits the registers of a block of a cluster of 16) and ``T >= 1``, and
-raises ``ValueError`` for anything else, on every device.
-The kernel has no backward: a CUDA call where autograd would record raises.
-``bilstm_layer.launches`` counts the kernel's launches, one a layer.
+``1 <= B <= MAX_BATCH``, ``T >= 1`` and ``1 <= H <= MAX_HIDDEN`` (the
+largest H whose W_hh slice fits the registers of a block of a cluster of 16)
+up to ``MAX_ROWS`` rows, ``1 <= H <= ROWS_MAX_HIDDEN`` (the largest H whose
+W_hh a cluster of 2 holds in shared memory beside the tile's h) past it, and
+raises ``ValueError`` for anything else, on every device.  The kernels have
+no backward: a CUDA call where autograd would record raises.
+``bilstm_layer.launches`` counts ``csrc/blstm.cu``'s launches and
+``bilstm_layer.rows_launches`` ``csrc/blstm_rows.cu``'s, one a layer.
 """
 
 from __future__ import annotations
@@ -36,6 +43,20 @@ from amss_tpu_torch.ops.kernels.build import c_ints, check_device, check_launch,
 
 MAX_BATCH = 65535  # the grid's tiles of rows, a tile at least one row
 MAX_HIDDEN = 304
+# the rows past which the row-parallel kernel runs (the crossover with cuDNN's
+# packed path at H = 300 that csrc/blstm.cu was measured against:
+# models/blstm.py)
+MAX_ROWS = 192
+ROWS_MAX_HIDDEN = 128
+
+
+def takes(rows: int, hidden: int) -> bool:
+    """Whether one of the kernels takes ``rows`` rows of ``hidden`` cells:
+    ``csrc/blstm.cu`` up to ``MAX_ROWS`` rows and ``MAX_HIDDEN`` cells,
+    ``csrc/blstm_rows.cu`` past them, up to ``MAX_BATCH`` rows and
+    ``ROWS_MAX_HIDDEN`` cells."""
+    return 1 <= rows <= MAX_BATCH and 1 <= hidden <= (
+        MAX_HIDDEN if rows <= MAX_ROWS else ROWS_MAX_HIDDEN)
 
 
 def direction_ref(x: torch.Tensor, mask: torch.Tensor | None, w_ih: torch.Tensor,
@@ -86,9 +107,10 @@ def _check(x: torch.Tensor, mask: torch.Tensor | None, fwd, bwd) -> None:
         raise ValueError("bilstm_layer takes (w_ih, w_hh, bias) for each direction")
     w_hh = fwd[1]
     hd = w_hh.shape[-1] if w_hh.dim() == 2 else 0
-    if not (1 <= b <= MAX_BATCH and 1 <= hd <= MAX_HIDDEN and t >= 1):
-        raise ValueError(f"bilstm_layer takes 1 <= B <= {MAX_BATCH}, 1 <= H <= {MAX_HIDDEN} and "
-                         f"T >= 1, got B {b}, H {hd}, T {t}")
+    if t < 1 or not takes(b, hd):
+        raise ValueError(f"bilstm_layer takes T >= 1, 1 <= B <= {MAX_BATCH}, 1 <= H <= "
+                         f"{MAX_HIDDEN} up to {MAX_ROWS} rows and H <= {ROWS_MAX_HIDDEN} past "
+                         f"them, got B {b}, H {hd}, T {t}")
     want = {"w_ih": (4 * hd, n_in), "w_hh": (4 * hd, hd), "bias": (4 * hd,)}
     named = {"x": x}
     for side, ws in (("forward", fwd), ("backward", bwd)):
@@ -114,25 +136,30 @@ def _check(x: torch.Tensor, mask: torch.Tensor | None, fwd, bwd) -> None:
 
 def _launch(x: torch.Tensor, mask: torch.Tensor | None, fwd, bwd) -> torch.Tensor:
     if torch.is_grad_enabled() and any(v.requires_grad for v in (x, *fwd, *bwd)):
-        raise RuntimeError("bilstm_layer's kernel has no backward: call it under no_grad")
+        raise RuntimeError("bilstm_layer's kernels have no backward: call it under no_grad")
     b, t, n_in = x.shape
     hd = fwd[1].shape[1]
     xproj = torch.addmm(torch.cat([fwd[2], bwd[2]]), x.reshape(b * t, n_in),
                         torch.cat([fwd[0], bwd[0]]).T)  # [B·T, 8H]
     out = torch.empty((b, t, 2 * hd), dtype=torch.float32, device=x.device)
     lib = load_library()
+    many = b > MAX_ROWS
+    entry = lib.amss_blstm_rows if many else lib.amss_blstm
     with torch.cuda.device(x.device):
-        err = lib.amss_blstm(xproj.data_ptr(), fwd[1].data_ptr(), bwd[1].data_ptr(),
-                             None if mask is None else mask.data_ptr(), out.data_ptr(),
-                             *c_ints(b, t, hd), torch.cuda.current_stream(x.device).cuda_stream)
-    check_launch(lib, "blstm", err)
-    bilstm_layer.launches += 1
+        err = entry(xproj.data_ptr(), fwd[1].data_ptr(), bwd[1].data_ptr(),
+                    None if mask is None else mask.data_ptr(), out.data_ptr(), *c_ints(b, t, hd),
+                    torch.cuda.current_stream(x.device).cuda_stream)
+    check_launch(lib, "blstm_rows" if many else "blstm", err)
+    if many:
+        bilstm_layer.rows_launches += 1
+    else:
+        bilstm_layer.launches += 1
     return out
 
 
 def bilstm_layer(x: torch.Tensor, mask: torch.Tensor | None, fwd, bwd) -> torch.Tensor:
-    """One bidirectional layer (module docstring): the kernel on CUDA, the
-    plain version on the CPU, after the same checks."""
+    """One bidirectional layer (module docstring): a kernel on CUDA, chosen
+    by the rows, the plain version on the CPU, after the same checks."""
     _check(x, mask, fwd, bwd)
     if x.device.type == "cpu":
         return bilstm_layer_ref(x, mask, fwd, bwd)
@@ -140,4 +167,5 @@ def bilstm_layer(x: torch.Tensor, mask: torch.Tensor | None, fwd, bwd) -> torch.
 
 
 bilstm_layer.launches = 0
+bilstm_layer.rows_launches = 0
 

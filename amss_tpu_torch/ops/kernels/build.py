@@ -53,6 +53,8 @@ SIGNATURES = {
     "amss_soft_assignments": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # xproj, w_hh forward, w_hh backward, mask (or null), out, batch, t, hidden, stream
     "amss_blstm": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # the same, for many rows
+    "amss_blstm_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

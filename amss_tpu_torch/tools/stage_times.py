@@ -14,10 +14,10 @@ one JSON line: per span path (``serve.job > serve.batch > trunk``) the median
 over the calls (or steps, draws, puts: each root span) of its host ms and,
 for the layer spans on the card, its device ms, beside the median wall ms of
 a call or a step, and, for a BLSTM trunk, the paths its ``trunk`` spans
-record (``blstm_path``: how many of each) and the recurrence kernel's
-launches a root (``ops/kernels/blstm.py::bilstm_layer.launches``).  The
-layers' own code opens the spans, so this reads whatever a model does inside
-them.  Needs a CUDA device.
+record (``blstm_path``: how many of each) and the recurrence kernels'
+launches a root (``ops/kernels/blstm.py::bilstm_layer``'s ``launches`` and
+``rows_launches``).  The layers' own code opens the spans, so this reads
+whatever a model does inside them.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -97,9 +97,14 @@ def span_table(records) -> dict:
     return table
 
 
+def _blstm_launches() -> int:
+    """Both recurrence kernels' launches so far."""
+    return bilstm_layer.launches + bilstm_layer.rows_launches
+
+
 def blstm_record(records, roots: int, launched: int) -> dict:
     """The ``trunk`` spans' ``blstm_path`` attributes (how many of each) and
-    the recurrence kernel's launches over ``roots`` root spans."""
+    the recurrence kernels' launches over ``roots`` root spans."""
     paths = Counter(r.attrs["blstm_path"] for r in records
                     if r.name == profiling.TRUNK and "blstm_path" in r.attrs)
     return {"blstm_paths": dict(paths), "blstm_launches_per_root": launched / roots}
@@ -117,7 +122,7 @@ def serving_spans(model, calls: int = CALLS) -> dict:
     rng = np.random.default_rng(0)
     waves = list((rng.standard_normal((BATCH, SECONDS * SAMPLE_RATE)) * 0.3).astype(np.float32))
     wall = []
-    launched = bilstm_layer.launches
+    launched = _blstm_launches()
     with profiling.recording():
         for _ in range(calls + 1):
             t0 = time.perf_counter()
@@ -126,7 +131,7 @@ def serving_spans(model, calls: int = CALLS) -> dict:
     records = profiling.spans()
     return {"device": _device_name(device), "batch": BATCH, "samples": SECONDS * SAMPLE_RATE,
             "calls": calls, "call_wall_ms": statistics.median(wall[1:]),
-            **blstm_record(records, calls + 1, bilstm_layer.launches - launched),
+            **blstm_record(records, calls + 1, _blstm_launches() - launched),
             "spans": span_table(records)}
 
 
@@ -140,11 +145,11 @@ def training_spans(r, steps: int = STEPS, device=None) -> dict:
         store = make_synthetic_corpus(os.path.join(tmp, "corpus"), n_speakers=SPEAKERS,
                                       seconds_per_speaker=SPEAKER_SECONDS, seed=0)
         tr = Trainer(r, store, workdir=tmp, device=device)
-        launched = bilstm_layer.launches
+        launched = _blstm_launches()
         with profiling.recording():
             tr.fit(log_every=steps + 1)
         records = profiling.spans()
-        launched = bilstm_layer.launches - launched
+        launched = _blstm_launches() - launched
     starts = [rec.start_ns for rec in records if rec.name == profiling.TRAIN_STEP]
     return {"device": _device_name(tr.device), "batch": train.batch_size,
             "samples": train.chunk_samples, "steps": steps,

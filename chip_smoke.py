@@ -32,6 +32,16 @@ Phases, each printing its wall seconds:
    ms a layer of each (eager calls between CUDA events: the kernel with its
    GEMM, the loop, cuDNN with the host's packing) beside the kernel's FLOP
    over 67 TFLOP/s;
+2e. the row-parallel BLSTM kernel (``csrc/blstm_rows.cu``, the live
+   gradient-free float32 path past ``MAX_ROWS`` rows) against its plain
+   version (``BLSTM.loop``) and cuDNN's packed path at DPRNN-TasNet's cell
+   shapes (intra [3088, 250, 64] unmasked, inter [2000, 396, 64] with the
+   cell's mask, 386 chunks valid) -> 2 x 128, within BLSTM_TOL of the
+   output's largest magnitude, two runs bit-identical, one launch a layer on
+   its own counter, and ms a layer of each (eager calls between CUDA events:
+   the kernel with its GEMM, the GEMM alone, cuDNN with host lengths, the
+   plain loop) beside the layer's bound (3xTF32 and bytes, the projection
+   included, valid steps only) and the recurrence's FLOP over 67 TFLOP/s;
 2b. gradients: each kernel's autograd (its backward runs the other kernel)
    against torch autograd of its plain version on the card, at the training
    shape, the serving shape and edge shapes, with the backward launches
@@ -602,6 +612,18 @@ BLSTM_DESIGN = ("a cluster of 16 blocks per (direction, tile of rows), W_hh's sl
                 "(FFMA, float32), h exchanged by st.async into every block's next buffer, counted "
                 "on mbarriers; one launch a layer, both directions, every step, the mask read on "
                 "the card; the input projection one float32 GEMM a layer")
+
+# phase 2e: the row-parallel BLSTM kernel against loop and packed at DPRNN-TasNet's
+# cell shapes, name -> (rows, steps, inputs, valid steps or None: unmasked);
+# H = BLSTM_ROWS_HIDDEN, tolerance BLSTM_TOL
+BLSTM_ROWS_SHAPES = {"intra": (3088, 250, 64, None), "inter": (2000, 396, 64, 386)}
+BLSTM_ROWS_HIDDEN = 128
+BLSTM_ROWS_DESIGN = ("a cluster of 2 blocks per (direction, tile of rows), the tile sized so "
+                     "that both directions' tiles fill the card in one wave; W_hh's slice in "
+                     "shared memory, 8 rows x 2 units (all 4 gates) a thread in FFMA, float32; "
+                     "h exchanged by st.async into both blocks' next buffer, counted on "
+                     "mbarriers; one launch a layer, both directions, every step, the mask read "
+                     "on the card; the input projection one float32 GEMM a layer")
 
 # name -> (source, the TPU kernel it replaces, its design)
 KERNELS = {
@@ -1176,6 +1198,75 @@ def phase_blstm(gen: torch.Generator) -> dict:
     say(f"  a layer: kernel {ms:.4f} ms ({out['step_us']:.3f} us a step, GEMM included), plain "
         f"loop {plain_ms:.4f} ms, packed {packed_ms:.4f} ms; FLOP / 67 TFLOP/s "
         f"{out['fp32_bound_ms']:.4f} ms")
+    return out
+
+
+def phase_blstm_rows(gen: torch.Generator) -> dict:
+    """The row-parallel BLSTM kernel against its plain version (``BLSTM.loop``)
+    and cuDNN's packed path at DPRNN-TasNet's cell shapes on the card, ms a
+    layer of each, and the layer's bound by the kernel table's rule (3xTF32
+    and bytes, the projection included, valid steps only)."""
+    from amss_tpu_torch.models.blstm import BLSTM
+    from amss_tpu_torch.ops.kernels.blstm import MAX_ROWS, bilstm_layer
+
+    hd = BLSTM_ROWS_HIDDEN
+    out = {}
+    for name, (b, t, n_in, valid) in BLSTM_ROWS_SHAPES.items():
+        m = BLSTM(n_in, hd, 1)
+        m.init_parameters(torch.Generator().manual_seed(b))
+        m = m.cuda().eval()
+        x = torch.randn(b, t, n_in, generator=gen, device="cuda")
+        lengths = torch.full((b,), t if valid is None else valid, dtype=torch.int64)
+        mask = None
+        if valid is not None:
+            mask = torch.ones(b, t, device="cuda")
+            mask[:, valid:] = 0.0
+        fwd, bwd = m._weights(0, False), m._weights(0, True)
+        with torch.no_grad():
+            if b <= MAX_ROWS or m.path(x) != "kernel":
+                raise AssertionError(f"{name} rows take the {m.path(x)} path at {b} rows")
+            before = (bilstm_layer.launches, bilstm_layer.rows_launches)
+            got = m(x, mask)
+            again = m(x, mask)
+            launched = (bilstm_layer.launches - before[0], bilstm_layer.rows_launches - before[1])
+            if launched != (0, 2):
+                raise AssertionError(f"{name}: two calls launched {launched} kernels (few rows, "
+                                     f"many rows), want (0, 2)")
+            repeats = bool(torch.equal(got, again))
+            errs = {}
+            for kind, want in (("plain", m.loop(x, mask)), ("packed", m.packed(x, mask, lengths))):
+                errs[kind] = max_err(got, want) / float(want.abs().max())
+            ms = _eager_ms(lambda: bilstm_layer(x, mask, fwd, bwd))
+            w_ih, bias = torch.cat([fwd[0], bwd[0]]).T, torch.cat([fwd[2], bwd[2]])
+            x2 = x.reshape(b * t, n_in)
+            proj_ms = _eager_ms(lambda: torch.addmm(bias, x2, w_ih))
+            packed_ms = _eager_ms(lambda: m.packed(x, mask, lengths, 0))
+            plain_ms = _eager_ms(lambda: m._layer_loop(x, mask, 0), calls=2)
+        # the layer's products over its valid steps, both directions: the
+        # projection and the recurrence; its bytes: x, the output, the mask
+        # and the weights
+        steps = valid or t
+        rec_flops = 2 * steps * 8.0 * b * hd * hd
+        flops = 2.0 * b * steps * n_in * 8 * hd + rec_flops
+        nbytes = 4.0 * (b * t * (n_in + 2 * hd + (mask is not None))
+                        + 2 * 4 * hd * (n_in + hd + 1))
+        r = dict(shape=[b, t, n_in], hidden=hd, valid_steps=steps, rel_err=errs["plain"],
+                 rel_err_packed=errs["packed"], tol=BLSTM_TOL, repeats=repeats,
+                 ms_per_layer=ms, projection_ms=proj_ms, recurrence_ms=ms - proj_ms,
+                 packed_ms_per_layer=packed_ms, plain_ms_per_layer=plain_ms,
+                 flops_per_layer=flops, bytes_per_layer=nbytes, **bound(flops, nbytes),
+                 recurrence_flops=rec_flops,
+                 recurrence_fp32_ms=rec_flops / PEAK_FP32_FLOPS * 1e3)
+        say(f"  BLSTM {name} [{b}, {t}, {n_in}] -> 2 x {hd}: the row-parallel kernel against "
+            f"the plain loop {errs['plain']:.3e} and against packed {errs['packed']:.3e} of the "
+            f"peak (tol {BLSTM_TOL:g}), bit-identical on a second run: {repeats}; a layer "
+            f"{ms:.4f} ms (its GEMM {proj_ms:.4f}), packed {packed_ms:.4f} ms, the plain loop "
+            f"{plain_ms:.4f} ms; bound {r['bound_ms']:.4f} ms ({r['bound_by']}, 3xTF32), the "
+            f"recurrence's FLOP / 67 TFLOP/s {r['recurrence_fp32_ms']:.4f} ms")
+        if not (max(errs.values()) <= BLSTM_TOL and repeats):
+            raise AssertionError(f"the row-parallel BLSTM kernel at {name}: errors {errs}, "
+                                 f"repeats {repeats}")
+        out[name] = r
     return out
 
 
@@ -2594,10 +2685,10 @@ def phase_dual_path(trunk: str, store, workdir: str) -> tuple[dict, dict]:
     waves[1] = waves[1][:DP_PADDED_SAMPLES]
     buckets = BucketSpec(lengths=(QUALITY_T,))
     reset_launches()
-    b0 = bilstm_layer.launches
+    b0 = bilstm_layer.launches + bilstm_layer.rows_launches
     card = StreamingSeparator(model, buckets=buckets).separate_all(waves)
     launches[f"c6_{trunk}_serve"] = launch_counts()
-    blstm = bilstm_layer.launches - b0
+    blstm = bilstm_layer.launches + bilstm_layer.rows_launches - b0
     # a fresh separator runs the group's shape once to warm it, then serves it
     want = 2 * dual_path_blstm_launches(model, len(waves), QUALITY_T)
     if blstm != want:
@@ -4142,7 +4233,9 @@ def phase_dprnn() -> dict:
 
     from amss_tpu_torch.infer.streaming import StreamingSeparator
     from amss_tpu_torch.models.blstm import blstm_path
+    from amss_tpu_torch.ops.kernels.blstm import MAX_ROWS
     from amss_tpu_torch.models.dprnn import segments
+    from amss_tpu_torch.ops.kernels.blstm import bilstm_layer
     from amss_tpu_torch.train.engine import make_model
     from amss_tpu_torch.utils import profiling
     from amss_tpu_torch.utils.config import FrontConfig, ModelConfig, SeparatorConfig
@@ -4168,11 +4261,13 @@ def phase_dprnn() -> dict:
     sep = StreamingSeparator(model, sample_rate=cfg["sample_rate"])
     sep.separate_all(waves, max_batch=len(waves))  # warm-up
     torch.cuda.synchronize()
+    launched = (bilstm_layer.launches, bilstm_layer.rows_launches)
     t0 = time.perf_counter()
     with profiling.recording():
         outs = sep.separate_all(waves, max_batch=len(waves))
         torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
+    launched = (bilstm_layer.launches - launched[0], bilstm_layer.rows_launches - launched[1])
     kept = profiling.spans()
     paths = [r for r in kept if r.name in ("dprnn.intra", "dprnn.inter")]
     took = Counter(f"{r.name}:{r.attrs['blstm_path']}" for r in paths)
@@ -4192,6 +4287,14 @@ def phase_dprnn() -> dict:
                                  f"(steps, valid) {steps[r.name]}")
     if took != want:
         raise AssertionError(f"the BLSTM paths of a call {dict(took)}, want {dict(want)}")
+    # each layer on the kernel of its rows: a launch of the row-parallel one
+    # past MAX_ROWS, of the other below
+    want_launches = tuple(sum(mc.sep.repeats for name, n in rows.items()
+                              if rule[name] == "kernel" and (n > MAX_ROWS) == many)
+                          for many in (False, True))
+    if launched != want_launches:
+        raise AssertionError(f"a call launched {launched} BLSTM kernels (few rows, many rows), "
+                             f"want {want_launches}")
     syncs = sum(r.name == "sync.lengths" for r in kept)
     calls = sum(r.name == "serve.batch" for r in kept)
     if (syncs, calls) != (1, 1):
@@ -4206,9 +4309,10 @@ def phase_dprnn() -> dict:
     device_ms = {name: sum(r.device_ms or 0.0 for r in paths if r.name == name)
                  for name in rows}
     out = dict(lengths=list(DPRNN_LENGTHS), own_chunks=own, grid_chunks=grid, rows=rows,
-               blstm_paths=dict(took), rel_err=errs, tol=tol, wall_ms=wall_ms,
-               device_ms=device_ms, syncs_per_call=syncs / calls)
+               blstm_paths=dict(took), blstm_launches=launched, rel_err=errs, tol=tol,
+               wall_ms=wall_ms, device_ms=device_ms, syncs_per_call=syncs / calls)
     say(f"  DPRNN-TasNet [8 x 35000-48000 in 49152] on the card: paths {dict(took)}, "
+        f"launches (few rows, many rows) {launched}, "
         f"rows {rows}, against the reference at most {max(errs):.3e} (limit {tol:g}), a "
         f"call {wall_ms:.1f} ms, intra/inter device {device_ms} ms, syncs a call "
         f"{syncs / calls}")
@@ -4410,7 +4514,7 @@ def main() -> None:
         if compiled[name]["HMMA"] + compiled[name]["HGMMA"] == 0:
             raise AssertionError(f"{name}: no tensor-core instruction in its machine code")
     for name in ("multi_adam_norm", "multi_adam_update", "kmeans_pass", "kmeans_update",
-                 "kmeans_seed", "blstm"):
+                 "kmeans_seed", "blstm", "blstm_rows"):
         compiled[name] = kernel_facts(ptxas, sass, f"{name}_kernel")
         say(f"  {name}: {compiled[name]}")
     say(f"phase 1 build: build_s {build_s:.2f} (wall {time.perf_counter() - t0:.2f} s)")
@@ -4428,6 +4532,10 @@ def main() -> None:
     t0 = time.perf_counter()
     blstm_record = phase_blstm(gen)
     say(f"phase 2d BLSTM kernel: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    blstm_rows_record = phase_blstm_rows(gen)
+    say(f"phase 2e row-parallel BLSTM kernel: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
     grads = phase_gradients(gen)
@@ -4755,6 +4863,12 @@ def main() -> None:
         "replaces": None, "design": BLSTM_DESIGN, **blstm_record,
         "launches_per_path": {p: n["blstm"] for p, n in per_path.items() if "blstm" in n},
         "kernels": {"blstm": compiled["blstm"]},
+    })
+    record.append({
+        "name": "blstm_rows", "route": "cuda", "source": "amss_tpu_torch/csrc/blstm_rows.cu",
+        "replaces": None, "design": BLSTM_ROWS_DESIGN, **blstm_rows_record,
+        "launches_per_call": {"dprnn_tasnet": dprnn_tasnet["blstm_launches"][1]},
+        "kernels": {"blstm_rows": compiled["blstm_rows"]},
     })
     say(json.dumps({"main_path": speed, "quality": quality, "training": train,
                     "c2_serving": speed_c2, "c2_quality": quality_c2, "c2_training": train_c2,

@@ -1,14 +1,17 @@
-"""The BLSTM's recurrence kernel (``amss_tpu_torch/ops/kernels/blstm.py``
-over ``csrc/blstm.cu``) and the BLSTM's choice of path
-(``models/blstm.py::blstm_path``).
+"""The BLSTM's recurrence kernels (``amss_tpu_torch/ops/kernels/blstm.py``
+over ``csrc/blstm.cu`` up to ``MAX_ROWS`` rows and ``csrc/blstm_rows.cu``
+past them) and the BLSTM's choice of path (``models/blstm.py::blstm_path``).
 
 On the CPU: the path of each (device, dtype, grad mode, dropout, export,
 rows, hidden size), as ``BLSTM.path`` gives it and as the ``trunk`` span
 records it (``blstm_path``); DPRNN's rows at serving's batch take the path
-their count gives (``MAX_ROWS``); the wrapper refuses what the kernel does
-not take; its CPU dispatch is the plain version, which equals ``BLSTM.loop``
-bit for bit; the benchmark's ``serve.blstm.kernel_share`` reads the spans'
-paths.
+their count gives; the wrapper launches the kernel of its row count (its C
+entry point and launch counter, the launch itself stubbed); it refuses what
+the kernels do not take, H past ``ROWS_MAX_HIDDEN`` past ``MAX_ROWS`` rows
+included, and ``blstm_path`` sends to ``kernel`` what it takes (``takes``,
+one rule for both); its CPU dispatch is the plain version, which equals
+``BLSTM.loop`` bit for bit at either side of ``MAX_ROWS``; the benchmark's
+``serve.blstm.kernel_share`` reads the spans' paths.
 
 On the card (marked ``card``; ``python -m pytest
 tests/test_torch_blstm_kernel.py --noconftest -m card``, since the card's
@@ -20,11 +23,19 @@ and no mask, against ``loop`` in float64 on the CPU and against ``packed`` on
 the card, within 1e-5 of the output's largest magnitude; two runs
 bit-identical; a mask with holes, which ``packed`` refuses, matches ``loop``;
 a served call on the card takes the kernel, one launch a layer, and copies no
-mask to the host, and its trunk matches the CPU's on the same features.
+mask to the host, and its trunk matches the CPU's on the same features.  The
+row-parallel kernel at DPRNN-TasNet's cell shapes (intra ``[3088, 250, 64]``
+unmasked, inter ``[2000, 396, 64]`` with the cell's prefix mask) within
+ROWS_TOL of ``loop`` in float64 and TOL of ``packed``; at c6's inter rows
+``[256, 125, 128]`` with a prefix mask, a mask with holes, row counts that
+are no multiple of a tile and ``MAX_ROWS + 1``, within TOL; two runs
+bit-identical, one launch a layer on its own counter; a raise where
+autograd records.
 
 This file imports no JAX: the card's machine has none.
 """
 
+import contextlib
 import importlib.util
 import sys
 import types
@@ -35,10 +46,12 @@ import pytest
 import torch
 
 from amss_tpu_torch.configs.recipes import c6_dual_path
-from amss_tpu_torch.models.blstm import MAX_ROWS, BLSTM, blstm_path
+from amss_tpu_torch.models.blstm import BLSTM, blstm_path
 from amss_tpu_torch.models.dpcl import DPCLModel
 from amss_tpu_torch.models.dprnn import DropoutKey
-from amss_tpu_torch.ops.kernels.blstm import MAX_BATCH, MAX_HIDDEN, bilstm_layer
+from amss_tpu_torch.ops.kernels import blstm as kernels
+from amss_tpu_torch.ops.kernels.blstm import (
+    MAX_BATCH, MAX_HIDDEN, MAX_ROWS, ROWS_MAX_HIDDEN, bilstm_layer, takes)
 from amss_tpu_torch.utils import profiling
 from amss_tpu_torch.utils.config import FrontConfig, ModelConfig, SeparatorConfig
 
@@ -91,6 +104,12 @@ DISPATCH = [
     (("cuda", F32, False, False, False, 1, 300), "kernel"),
     (("cuda", F32, False, False, False, MAX_ROWS, MAX_HIDDEN), "kernel"),
     (("cuda", F32, False, False, False, MAX_ROWS + 1, 300), "packed"),
+    (("cuda", F32, False, False, False, MAX_ROWS + 1, ROWS_MAX_HIDDEN), "kernel"),
+    (("cuda", F32, False, False, False, 3088, 128), "kernel"),  # DPRNN-TasNet's cell
+    (("cuda", F32, False, False, False, MAX_ROWS + 1, ROWS_MAX_HIDDEN + 1), "packed"),
+    (("cuda", F32, False, False, False, MAX_BATCH + 1, ROWS_MAX_HIDDEN), "packed"),
+    (("cuda", F32, True, False, False, 3088, 128), "packed"),  # training past MAX_ROWS
+    (("cuda", F32, False, True, False, 3088, 128), "packed"),
     (("cuda", F32, False, False, False, 8, MAX_HIDDEN + 1), "packed"),
     (("cuda", F32, True, False, False, 8, 300), "packed"),  # training
     (("cuda", F32, True, True, False, 8, 300), "packed"),
@@ -144,12 +163,12 @@ def test_trunk_span_records_the_path(dtype, grad, want):
     assert [r.attrs.get("blstm_path") for r in trunks] == [want]
 
 
-@pytest.mark.parametrize("bucket,want", [(8192, ("kernel", "packed")),
-                                         (65536, ("packed", "packed"))])
+@pytest.mark.parametrize("bucket,want", [(8192, ("kernel", "kernel")),
+                                         (65536, ("kernel", "kernel"))])
 def test_dprnn_rows_at_serving_batch_take_the_path_of_their_count(bucket, want):
     """DPRNN's rows are B·P chunks (intra) and B·K frames of a chunk (inter):
-    at serving's batch of 8 the inter rows lie past MAX_ROWS and keep
-    ``packed``; the intra rows take the kernel in short buckets."""
+    at serving's batch of 8, H = 128, both paths take a kernel whatever
+    their count (the row-parallel one past MAX_ROWS)."""
     cfg = c6_dual_path("dprnn").model
     k = cfg.sep.chunk_frames
     t = cfg.front.frames_for(bucket)
@@ -172,6 +191,83 @@ def test_cpu_dispatch_is_loop_bit_for_bit(mask_kind):
         assert torch.equal(h, m(x, mask))
     if mask is not None:  # a row with no valid frame outputs 0
         assert torch.equal(h * (1 - mask)[..., None], torch.zeros_like(h))
+
+
+@pytest.mark.parametrize("mask_kind", [None, "prefix", "holes"])
+def test_cpu_dispatch_past_max_rows_is_loop_bit_for_bit(mask_kind):
+    m = _blstm(6, 8, 1, seed=4)
+    b = MAX_ROWS + 1
+    x = torch.randn(b, 7, 6, generator=torch.Generator().manual_seed(5))
+    mask = _mask(mask_kind, b, 7, seed=6)
+    with torch.no_grad():
+        h = bilstm_layer(x, mask, *_weights(m, 0))
+        assert torch.equal(h, m.loop(x, mask))
+        assert torch.equal(h, m(x, mask))
+
+
+class _Lib:
+    """The kernels' library with its launches stubbed: records which entry
+    point each call reached, with its three sizes (before the stream)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args[-4:-1]))
+            return 0
+        return entry
+
+
+@pytest.mark.parametrize("rows,entry", [(1, "amss_blstm"), (MAX_ROWS, "amss_blstm"),
+                                        (MAX_ROWS + 1, "amss_blstm_rows"),
+                                        (1000, "amss_blstm_rows")])
+def test_the_wrapper_launches_the_kernel_of_its_row_count(monkeypatch, rows, entry):
+    lib = _Lib()
+    monkeypatch.setattr(kernels, "load_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    m = _blstm(6, 8, 1, seed=0)
+    x = torch.randn(rows, 3, 6)
+    counts = (bilstm_layer.launches, bilstm_layer.rows_launches)
+    with torch.no_grad():
+        out = kernels._launch(x, None, *_weights(m, 0))
+    assert out.shape == (rows, 3, 16)
+    assert lib.calls == [(entry, (rows, 3, 8))]
+    many = entry == "amss_blstm_rows"
+    assert (bilstm_layer.launches - counts[0], bilstm_layer.rows_launches - counts[1]) == (
+        (0, 1) if many else (1, 0))
+
+
+@pytest.mark.parametrize("rows,hidden,refused", [
+    (MAX_ROWS + 1, ROWS_MAX_HIDDEN + 1, True), (MAX_ROWS + 1, MAX_HIDDEN, True),
+    (MAX_ROWS + 1, ROWS_MAX_HIDDEN, False), (MAX_ROWS, ROWS_MAX_HIDDEN + 1, False)])
+def test_the_wrapper_refuses_hidden_past_the_row_kernels_limit(rows, hidden, refused):
+    m = _blstm(4, hidden, 1, seed=0)
+    x = torch.randn(rows, 1, 4)
+    with torch.no_grad():
+        if refused:
+            with pytest.raises(ValueError, match="past"):
+                bilstm_layer(x, None, *_weights(m, 0))
+        else:
+            assert bilstm_layer(x, None, *_weights(m, 0)).shape == (rows, 1, 2 * hidden)
+
+
+@pytest.mark.parametrize("rows,hidden", [
+    (1, 1), (MAX_ROWS, MAX_HIDDEN), (MAX_ROWS, MAX_HIDDEN + 1), (MAX_ROWS + 1, ROWS_MAX_HIDDEN),
+    (MAX_ROWS + 1, ROWS_MAX_HIDDEN + 1), (MAX_BATCH, ROWS_MAX_HIDDEN), (MAX_BATCH + 1, 1)])
+def test_the_models_rule_is_what_the_wrapper_takes(rows, hidden):
+    """``blstm_path`` sends a shape to ``kernel`` exactly where the wrapper's
+    check takes it: both read ``takes``."""
+    ws = (torch.zeros(4 * hidden, 2), torch.zeros(4 * hidden, hidden), torch.zeros(4 * hidden))
+    try:
+        kernels._check(torch.zeros(rows, 1, 2), None, ws, ws)
+        taken = True
+    except ValueError:
+        taken = False
+    assert taken == takes(rows, hidden)
+    assert (blstm_path("cuda", F32, F32, rows, hidden, False, False, False) == "kernel") == taken
 
 
 REFUSED = ["x float64", "x 2-D", "no steps", "rows past MAX_BATCH", "hidden past MAX_HIDDEN",
@@ -280,13 +376,14 @@ def _held_on_card(card, shape, mask_kind, against_packed: bool) -> None:
     mask = _mask(mask_kind, b, t, seed=b)
     mc = m.to(card)
     xc, mcard = x.to(card), None if mask is None else mask.to(card)
-    before = bilstm_layer.launches
+    before = (bilstm_layer.launches, bilstm_layer.rows_launches)
     with torch.no_grad():
         assert mc.path(xc) == "kernel"
         got = mc(xc, mcard)
         again = mc(xc, mcard)
         torch.cuda.synchronize()
-        assert bilstm_layer.launches - before == 2 * layers
+        assert (bilstm_layer.launches - before[0], bilstm_layer.rows_launches - before[1]) == (
+            (0, 2 * layers) if b > MAX_ROWS else (2 * layers, 0))
         assert torch.equal(got, again)
         assert _err(got, _loop64(m, x, mask)) <= TOL
         if mask_kind == "holes":
@@ -321,6 +418,58 @@ def test_wrapper_raises_where_autograd_records_on_the_card(card):
     x = torch.randn(2, 5, 6, device=card, requires_grad=True)
     with pytest.raises(RuntimeError):
         bilstm_layer(x, None, *_weights(m, 0))
+
+
+@pytest.mark.card
+def test_wrapper_raises_where_autograd_records_past_max_rows_on_the_card(card):
+    m = _blstm(6, 8, 1, seed=0).to(card)
+    x = torch.randn(MAX_ROWS + 1, 5, 6, device=card, requires_grad=True)
+    before = bilstm_layer.rows_launches
+    with pytest.raises(RuntimeError):
+        bilstm_layer(x, None, *_weights(m, 0))
+    assert bilstm_layer.rows_launches == before
+
+
+# the row-parallel kernel: DPRNN-TasNet's cell shapes (rows, steps, inputs,
+# hidden, layers) with the cell's masks: intra unmasked, inter valid on its
+# first 386 of 396 chunks in every row.  Its error from ``loop`` in float64
+# there is held to ROWS_TOL of the peak, as cuDNN's packed path's (3.6e-7)
+CELL_SHAPES = {"intra": ((3088, 250, 64, 128, 1), None), "inter": ((2000, 396, 64, 128, 1), 386)}
+ROWS_TOL = 1e-6
+# c6's DPRNN inter rows at a serving batch of 8 (masked), rows no multiple of
+# a tile, MAX_ROWS + 1, a hidden size no multiple of 4
+ROW_SHAPES = [(256, 125, 128, 128, 1), (1000, 40, 64, 128, 1), (MAX_ROWS + 1, 60, 64, 128, 1),
+              (3001, 20, 64, 128, 1), (300, 30, 40, 98, 2)]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("name", list(CELL_SHAPES))
+def test_row_kernel_at_the_cells_shapes_on_the_card(card, name):
+    (b, t, n_in, hd, layers), valid = CELL_SHAPES[name]
+    m = _blstm(n_in, hd, layers, seed=b)
+    x = torch.randn(b, t, n_in, generator=torch.Generator().manual_seed(t))
+    mask = None if valid is None else (torch.arange(t)[None, :] < valid).float().expand(b, t)
+    mask = None if mask is None else mask.contiguous()
+    lengths = torch.full((b,), t if valid is None else valid, dtype=torch.int64)
+    mc, xc = m.to(card), x.to(card)
+    mcard = None if mask is None else mask.to(card)
+    before = bilstm_layer.rows_launches
+    with torch.no_grad():
+        assert mc.path(xc) == "kernel"
+        got = mc(xc, mcard)
+        again = mc(xc, mcard)
+        torch.cuda.synchronize()
+        assert bilstm_layer.rows_launches - before == 2 * layers
+        assert torch.equal(got, again)
+        assert _err(got, mc.packed(xc, mcard, lengths)) <= TOL
+    assert _err(got, _loop64(m, x, mask)) <= ROWS_TOL
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("shape", ROW_SHAPES)
+@pytest.mark.parametrize("mask_kind", ["prefix", "holes"])
+def test_row_kernel_matches_loop_and_packed_on_the_card(card, shape, mask_kind):
+    _held_on_card(card, shape, mask_kind, against_packed=True)
 
 
 @pytest.mark.card

@@ -219,11 +219,11 @@ def test_one_streaming_job_matches_the_reference(tiny):
 
 # (rows, hidden) of the measured shapes -> the path of a live float32 call on
 # the card: deep clustering's cell, DPRNN-TasNet's intra and inter rows at the
-# benchmark's batch, then the probes whose faster side every reading agreed
-# on (PERF.md §6)
-RULE = [((8, 300), "kernel"), ((3088, 128), "packed"), ((2000, 128), "packed"),
+# benchmark's batch (the row-parallel kernel), then the probes whose faster
+# side every reading agreed on (PERF.md §6)
+RULE = [((8, 300), "kernel"), ((3088, 128), "kernel"), ((2000, 128), "kernel"),
         ((128, 300), "kernel"), ((160, 300), "kernel"), ((256, 300), "packed"),
-        ((512, 128), "packed")]
+        ((512, 128), "kernel")]
 
 
 @pytest.mark.parametrize("shape,want", RULE)
