@@ -201,6 +201,31 @@ def dprnn_tasnet(**over) -> RecipeConfig:
     )
 
 
+def tfgridnet(**over) -> RecipeConfig:
+    """TF-GridNet at ESPnet's published widths (``models/tfgridnet.py``;
+    Wang et al., IEEE/ACM TASLP 2023, arXiv:2211.12433, and the defaults of
+    ESPnet's ``TFGridNet``): the STFT of 128 at hop 64 (65 bins at 8 kHz),
+    an embedding of 48 channels, unfolds of 4 at hop 1, 6 blocks, each path
+    a one-layer BLSTM of 192 cells a direction, 4 heads of 8 query and key
+    channels a bin (⌈512 / 65⌉), two speakers.  Its training settings (chunks
+    of 4 s, batch 1, Adam at 1e-3, clip 5) are the port's choice; no cell
+    trains it yet.  It is no recipe of the JAX package, so not in
+    ``ALL_RECIPES``.  Keyword overrides go to ``TrainConfig``."""
+    return RecipeConfig(
+        name="tfgridnet",
+        model=ModelConfig(
+            kind="tfgridnet",
+            front=FrontConfig(kind="stft", win=128, hop=64),
+            sep=SeparatorConfig(hidden=192, layers=1, embed_dim=48, trunk="tfgridnet",
+                                kernel=4, heads=4, expansion=8, blocks=6, remat=False,
+                                dropout=0.0),
+            nb_speakers=2,
+        ),
+        train=TrainConfig(**{"batch_size": 1, "chunk_samples": 32000, "lr": 1e-3,
+                             "grad_clip": 5.0, **over}),
+    )
+
+
 # The CLI's recipe names, the JAX package's (``amss_tpu/configs/recipes.py``).
 ALL_RECIPES = {
     "c1": c1_stft_dpcl,

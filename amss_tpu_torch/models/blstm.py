@@ -73,7 +73,10 @@ from amss_tpu_torch.utils.profiling import SYNC_LENGTHS, span
 
 # The row rule (ops/kernels/blstm.py::takes): up to MAX_ROWS (192) rows
 # csrc/blstm.cu, past them csrc/blstm_rows.cu where H <= ROWS_MAX_HIDDEN
-# (128), else packed.
+# (128), else packed.  So rows of H = 192 past 192 rows run packed:
+# TF-GridNet's (models/tfgridnet.py), whose benchmark cell serves intra rows
+# [5992, 62, 192] and inter rows [520, 764, 192] (746 steps valid), every
+# call given its host lengths.
 # One layer, csrc/blstm.cu | packed ms (packed given host lengths) | cuDNN
 # unpacked ms where every row is whole | csrc/blstm_rows.cu, on an H100 80GB
 # HBM3 at 700 W (PERF.md §6; each kernel with the projection's GEMM):

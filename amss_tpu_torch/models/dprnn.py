@@ -133,12 +133,13 @@ def split_key(rng: DropoutKey | None, n: int) -> list:
 
 class LayerNorm(nn.Module):
     """The parameters of a layer norm over the last axis, with the JAX
-    package's names: gain ``g`` (1 at init) and bias ``b`` (0)."""
+    package's names: gain ``g`` (1 at init) and bias ``b`` (0), of ``shape``
+    (one axis; TF-GridNet's norm over channels and bins takes ``[C, F]``)."""
 
-    def __init__(self, dim: int):
+    def __init__(self, *shape: int):
         super().__init__()
-        self.g = nn.Parameter(torch.ones(dim))
-        self.b = nn.Parameter(torch.zeros(dim))
+        self.g = nn.Parameter(torch.ones(shape))
+        self.b = nn.Parameter(torch.zeros(shape))
 
     @torch.no_grad()
     def reset(self) -> None:

@@ -7,6 +7,9 @@ of ``models/adapt.py``.
 ``decode(codes, aux, length)``: masked magnitudes times the phase, back to
 waveforms.  Analysis runs kernel B1 and synthesis kernel B2, with the window
 folded into their bases; the COLA divide stays outside the kernel.
+``encode_ri`` and ``decode_ri`` are the same pair on the complex spectrum
+itself (real parts, then imaginary ones), for a model that maps spectra to
+spectra (TF-GridNet, ``models/tfgridnet.py``).
 ``make_front`` also builds SepFormer's conv front (``ConvFrontEnd``).
 
 The train-time corruptions (``drop_sources``, ``corrupt_mix``,
@@ -27,6 +30,7 @@ from torch import nn
 from amss_tpu_torch.models.adapt import AdaptFrontEnd
 from amss_tpu_torch.ops.kernels.framed_matmul import framed_matmul, stft_basis
 from amss_tpu_torch.ops.kernels.ola import decode_ola
+from amss_tpu_torch.ops.framing import overlap_add
 from amss_tpu_torch.ops.stft import cola_norm, hann_window, idft_matrices
 from amss_tpu_torch.utils.config import FrontConfig
 
@@ -53,13 +57,18 @@ class STFTFrontEnd(nn.Module):
             torch.as_tensor(np.concatenate([ci, si], axis=0) * window[None, :]),
         )
 
-    def encode(self, wave: torch.Tensor) -> tuple[torch.Tensor, dict]:
-        """``wave[..., T]`` -> (magnitudes ``[..., T', F]``, {"cos", "sin"})."""
-        f = self.cfg.win // 2 + 1
+    def encode_ri(self, wave: torch.Tensor) -> torch.Tensor:
+        """``wave[..., T]`` -> the spectrum ``[..., T', 2F]``, the real parts
+        then the imaginary ones."""
         lead = wave.shape[:-1]
         out = framed_matmul(wave.reshape(-1, wave.shape[-1]), self.analysis_basis,
                             self.cfg.hop)
-        out = out.reshape(*lead, *out.shape[-2:])
+        return out.reshape(*lead, *out.shape[-2:])
+
+    def encode(self, wave: torch.Tensor) -> tuple[torch.Tensor, dict]:
+        """``wave[..., T]`` -> (magnitudes ``[..., T', F]``, {"cos", "sin"})."""
+        f = self.cfg.win // 2 + 1
+        out = self.encode_ri(wave)
         re, im = out[..., :f], out[..., f:]
         mag = torch.sqrt(re * re + im * im + _EPS * _EPS)
         return mag, {"cos": re / mag, "sin": im / mag}
@@ -69,13 +78,27 @@ class STFTFrontEnd(nn.Module):
 
     def decode(self, codes: torch.Tensor, aux: dict, length: int) -> torch.Tensor:
         """codes ``[..., T', F]`` with the phase in ``aux`` -> ``[..., length]``."""
-        lead = codes.shape[:-2]
-        nf, f = codes.shape[-2:]
-        ri = torch.cat([codes * aux["cos"], codes * aux["sin"]], dim=-1)
-        y = decode_ola(ri.reshape(-1, nf, 2 * f), self.synthesis_basis, self.cfg.hop,
-                       length=length)
-        y = y / cola_norm(self.window, nf, self.cfg.hop, length)
-        return y.reshape(*lead, length)
+        return self.decode_ri(torch.cat([codes * aux["cos"], codes * aux["sin"]], dim=-1),
+                              length)
+
+    def decode_ri(self, ri: torch.Tensor, length: int,
+                  frame_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """A spectrum ``[B, ..., T', 2F]`` (``encode_ri``'s layout) ->
+        ``[B, ..., length]``.  With a prefix ``frame_mask [B, T']``, each
+        row's normaliser is that of its own frames alone, so a row of a
+        padded batch whose spectrum is zero past its frames gets what it gets
+        unpadded."""
+        lead = ri.shape[:-2]
+        nf = ri.shape[-2]
+        y = decode_ola(ri.reshape(-1, nf, ri.shape[-1]), self.synthesis_basis, self.cfg.hop,
+                       length=length).reshape(*lead, length)
+        if frame_mask is None:
+            return y / cola_norm(self.window, nf, self.cfg.hop, length)
+        wsq = (self.window * self.window) * frame_mask[..., None]
+        norm = overlap_add(wsq, self.cfg.hop, length=length)  # [B, length]
+        peak = norm.amax(dim=-1, keepdim=True).clamp(min=1e-30)  # a row of no frame reads 0
+        norm = torch.maximum(norm, 1e-2 * peak)
+        return y / norm.reshape(norm.shape[0], *([1] * (y.dim() - 2)), length)
 
 
 class ConvFrontEnd(nn.Module):

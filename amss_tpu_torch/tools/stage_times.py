@@ -34,7 +34,13 @@ from collections import Counter
 import numpy as np
 import torch
 
-from amss_tpu_torch.configs.recipes import ALL_RECIPES, c6_dual_path, dprnn_tasnet, sepformer
+from amss_tpu_torch.configs.recipes import (
+    ALL_RECIPES,
+    c6_dual_path,
+    dprnn_tasnet,
+    sepformer,
+    tfgridnet,
+)
 from amss_tpu_torch.data.synthetic import make_synthetic_corpus
 from amss_tpu_torch.infer.streaming import StreamingSeparator
 from amss_tpu_torch.ops.kernels.blstm import bilstm_layer
@@ -48,6 +54,7 @@ SPEAKERS, SPEAKER_SECONDS = 24, 20.0  # the training corpus
 CHECKPOINTS = {"c1": "c1_dpcl", "c2": "c2_adapt", "c3": "c3_l41", "c6": "c6_flagship",
                "c7": "c7_causal"}
 RECIPES = {**ALL_RECIPES, "sepformer": sepformer, "dprnn_tasnet": dprnn_tasnet,
+           "tfgridnet": tfgridnet,
            "c6_dprnn": lambda **over: c6_dual_path("dprnn", **over),
            "c6_dpt": lambda **over: c6_dual_path("dpt", **over)}
 

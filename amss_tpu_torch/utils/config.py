@@ -135,7 +135,7 @@ def run_id_from_stored(d: dict) -> str:
     configs keep the ids they had before those fields existed."""
     d = json.loads(json.dumps(d))  # deep copy, JSON-normalised
     sep = d.get("model", {}).get("sep", {})
-    if sep.get("trunk") not in ("dpt", "sepformer"):
+    if sep.get("trunk") not in ("dpt", "sepformer", "tfgridnet"):
         sep.pop("heads", None)
     tr = d.get("train", {})
     if tr.get("accum_steps", 1) == 1:

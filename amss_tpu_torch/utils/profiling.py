@@ -36,7 +36,10 @@ SepFormer's ``trunk`` > ``sepformer.intra``, ``sepformer.inter`` (a stack of
 one repeat each; ``chunks``, ``valid_chunks``, ``rows``); DPRNN-TasNet's
 ``trunk`` > ``dprnn.intra``, ``dprnn.inter`` (one path of one block, its
 linear, GroupNorm and residual; ``rows`` run, ``steps`` (rows × the grid's
-steps), ``valid_steps`` and the BLSTM's ``blstm_path``).  Training
+steps), ``valid_steps`` and the BLSTM's ``blstm_path``); TF-GridNet's
+``trunk`` > ``tfgridnet.intra``, ``tfgridnet.inter`` (one path of one block;
+the same attributes) and ``tfgridnet.attn`` (one block's attention;
+``frames``, ``valid_frames``, ``heads``).  Training
 (``train/engine.py``): ``train.step`` > ``train.gather``, ``train.forward``,
 ``train.backward``, ``train.optimizer`` (> ``train.clip``; its attributes
 ``tensors`` and ``chunks`` say what the kernel pair of the optimizer took, 0
@@ -77,10 +80,13 @@ SEPFORMER_INTRA = "sepformer.intra"
 SEPFORMER_INTER = "sepformer.inter"
 DPRNN_INTRA = "dprnn.intra"
 DPRNN_INTER = "dprnn.inter"
+TFGRIDNET_INTRA = "tfgridnet.intra"
+TFGRIDNET_INTER = "tfgridnet.inter"
+TFGRIDNET_ATTN = "tfgridnet.attn"
 
 DEVICE_TIMED = frozenset({FRONT, TRUNK, HEAD, CLUSTER, DECODE, TRAIN_FORWARD, TRAIN_BACKWARD,
                           TRAIN_OPTIMIZER, SEPFORMER_INTRA, SEPFORMER_INTER, DPRNN_INTRA,
-                          DPRNN_INTER})
+                          DPRNN_INTER, TFGRIDNET_INTRA, TFGRIDNET_INTER, TFGRIDNET_ATTN})
 CAP = 100_000  # kept records; spans past it are counted in ``SpanList.dropped``
 
 _profiler = torch.autograd.profiler  # its _is_profiler_enabled is read at each call

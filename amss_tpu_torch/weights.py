@@ -45,6 +45,7 @@ from amss_tpu_torch.models.enhance import EnhancerModel
 from amss_tpu_torch.models.l41 import L41Model
 from amss_tpu_torch.models.sepformer import DPRNNTasNetModel, SepFormerModel
 from amss_tpu_torch.models.tasnet import TasNetModel
+from amss_tpu_torch.models.tfgridnet import TFGridNetModel
 from amss_tpu_torch.utils.config import ModelConfig, recipe_from_dict
 from amss_tpu_torch.utils.device import resolve_device
 
@@ -52,9 +53,9 @@ from amss_tpu_torch.utils.device import resolve_device
 # the enhancer, built over its base separator, is not in it
 MODELS = {"dpcl": DPCLModel, "adapt_ae": AdaptAutoencoder, "tasnet": TasNetModel,
           "l41": L41Model, "chimera": ChimeraModel, "sepformer": SepFormerModel,
-          "dprnn_tasnet": DPRNNTasNetModel}
+          "dprnn_tasnet": DPRNNTasNetModel, "tfgridnet": TFGridNetModel}
 Separator = (DPCLModel | TasNetModel | L41Model | ChimeraModel | SepFormerModel
-             | DPRNNTasNetModel | EnhancerModel)
+             | DPRNNTasNetModel | TFGridNetModel | EnhancerModel)
 
 
 def params_to_jax(model: Separator) -> dict:
@@ -67,7 +68,7 @@ def params_to_jax(model: Separator) -> dict:
 def params_from_jax(cfg: ModelConfig, params: dict, device=None,
                     base: Separator | None = None) -> Separator:
     """The model of ``cfg.kind`` (``dpcl``, ``tasnet``, ``l41``, ``chimera``,
-    ``sepformer``, ``dprnn_tasnet``, or ``enhance`` over ``base``) holding a
+    ``sepformer``, ``dprnn_tasnet``, ``tfgridnet``, or ``enhance`` over ``base``) holding a
     JAX parameter tree given as numpy arrays (lists, or dicts keyed "0", "1",
     ... as a checkpoint stores them).
     Each LSTM direction maps as ``weight_ih = wxᵀ``, ``weight_hh = whᵀ``,
